@@ -1,9 +1,8 @@
-"""DEEP-100M SERVE proof — weather-independent (CPU-capable).
+"""DEEP-100M SERVE proof (CPU-capable).
 
-VERDICT r3 item 7 asks for the 100M-scale claim ("100M needs only disk")
-to be proven, including the int32/int64 slot+id guards at that scale and a
-peak-RAM figure.  The full out-of-core BUILD at 100M is accelerator-bound
-(streamed assign is ~1e17 FLOPs — queued in the TPU session); the SERVE
+This proves the 100M-scale claim ("100M needs only disk"), including the
+int32/int64 slot+id guards at that scale and a peak-RAM figure.  The full out-of-core BUILD at 100M is accelerator-bound
+(streamed assign is ~1e17 FLOPs); the SERVE
 machinery, however, can be proven anywhere: this harness synthesizes a
 VALID 100M-row packed index directly (members drawn around well-separated
 centroids, written in cluster order through the streaming CSR writer — no
@@ -31,6 +30,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from spfresh_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

@@ -23,9 +23,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from spfresh_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+enable_compile_cache()
 
 import numpy as np
 

@@ -30,10 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+from spfresh_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -110,7 +109,7 @@ def main():
 
     from spfresh_tpu.eval import recall_at_k
     from spfresh_tpu.index import Config, LazySpannIndex, SpannIndexBuilder
-    from spfresh_tpu.utils.xfer import STATS, calibrate
+    from spfresh_tpu.utils.xfer import STATS
 
     os.makedirs(args.workdir, exist_ok=True)
     corpus_path = os.path.join(args.workdir, "corpus.f32")
@@ -132,9 +131,6 @@ def main():
     queries = np.asarray(data[np.sort(qrows)]) + 0.1 * rng.standard_normal(
         (args.nq, d)
     ).astype(np.float32)
-
-    cal_pre = calibrate()
-    log(f"tunnel (pre-build): {cal_pre}")
 
     cfg = Config.from_dict(
         {
@@ -209,8 +205,6 @@ def main():
             f"qps={args.nq / dt:,.0f}")
         if rec >= 0.95:
             break
-    cal_post = calibrate()
-    log(f"tunnel (post): {cal_post}")
     import resource
 
     # Peak host RSS (the DEEP-100M claim is "100M needs only disk": the
@@ -236,8 +230,6 @@ def main():
                 "clusters": num_clusters,
                 "stored_x": round(stored / n, 2),
                 "search": rows,
-                "tunnel_pre": cal_pre,
-                "tunnel_post": cal_post,
             }
         )
     )

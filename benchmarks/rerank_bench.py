@@ -1,146 +1,167 @@
-"""Rerank-kernel dtype A/B: bf16 slabs vs int8 residual slabs (IVF-SQ8).
+"""End-to-end search on the two posting layouts, on one GPU.
 
-The r4 session measured engine QPS at the 1M operating point regressing
-~4x under int8 storage (11,452 vs 45,412) while stage 1 (centroid scan)
-and stage 3 (merge) are storage-dtype-independent — the suspect is the
-quantized rerank path.  This bench isolates `padded_rerank_distances` at
-the exact serving geometry and also times the full fused search step per
-dtype, so the regression is attributable to a stage, not a guess.
+  slab — one padded block per posting, gathered whole (``slab_distances``);
+         refreshes in place after live updates;
+  csr  — flat CSR postings, gathered per member (``_search_kernel``);
+         repacks whole after any change.
 
-    python benchmarks/rerank_bench.py --c 10775 --pad 240 --q 4096
+Builds the SIFT1M-shape index of ``chip_smoke.py`` phase 1 (Gaussian
+mixture, bf16 storage, cluster size 256), finds the smallest ``nprobe`` of
+the sweep with recall@10 >= 0.90, then measures two workloads:
+
+* static: ``SpannIndex.search`` over ``--nq`` queries per layout, rounds in
+  the order slab csr csr slab, ``--reps`` times (best and median wall);
+* live updates: ``SpFreshIndex`` takes ``--rounds`` rounds of ``--batch``
+  inserts plus ``flush()``; after each, ``--nq-live`` queries are searched
+  on each layout (first order alternating by round), timing the first
+  search after the change (view refresh included) and a second one.
+
+Every line carries the card's name and power limit; the last line is JSON.
+
+    python benchmarks/rerank_bench.py [--nprobe 32] [--rounds 0]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import shutil
+import statistics
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-import jax
-import jax.numpy as jnp
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
-from spfresh_tpu.ops.pallas.rerank import padded_rerank_distances
+from spfresh_tpu.utils.compile_cache import REPO_ROOT, enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
+from spfresh_tpu.eval import (  # noqa: E402
+    NPROBE_SWEEP,
+    mixture_corpus,
+    recall_at_k,
+    sift1m_config,
+)
+from spfresh_tpu.index import SpannIndexBuilder, brute_force_search  # noqa: E402
+from spfresh_tpu.utils.card import card_name  # noqa: E402
+
+ENGINES = ("slab", "csr")
 
 
-def bench(fn, *args, reps=5, **kw):
-    out = jax.block_until_ready(fn(*args, **kw))  # compile
-    ts = []
+def timed(index, queries, nprobe, engine, k=10):
+    t0 = time.perf_counter()
+    ids, _ = index.search(queries, k, nprobe=nprobe, engine=engine)
+    return ids, time.perf_counter() - t0
+
+
+def static_rounds(index, queries, nprobe, gt, reps, say):
+    times = {e: [] for e in ENGINES}
+    for e in ENGINES:  # compile + recall outside the clock
+        ids, secs = timed(index, queries, nprobe, e)
+        say(f"static {e}: nprobe={nprobe} first call {secs:.3f} s, recall@10="
+            f"{recall_at_k(ids, gt, 10):.4f} ({len(queries)} queries)")
+    order = list(ENGINES) + list(reversed(ENGINES))
     for _ in range(reps):
-        t0 = time.perf_counter()
-        out = jax.block_until_ready(fn(*args, **kw))
-        ts.append(time.perf_counter() - t0)
-    return min(ts), out
+        for e in order:
+            times[e].append(timed(index, queries, nprobe, e)[1])
+    out = {}
+    for e, ts in times.items():
+        best, med = min(ts), statistics.median(ts)
+        out[e] = {"best_s": best, "median_s": med}
+        say(f"static {e}: best {best * 1e3:.3f} ms, median {med * 1e3:.3f} ms "
+            f"over {len(ts)} runs, {len(queries) / best:.1f} QPS")
+    return out
+
+
+def live_rounds(index, new, queries, nprobe, rounds, batch, say):
+    from spfresh_tpu.lire import LireConfig, SpFreshIndex
+
+    first = {e: [] for e in ENGINES}
+    second = {e: [] for e in ENGINES}
+    upd = []
+    next_id = int(max(int(ids.max()) for ids, _ in index.postings.values())) + 1
+    store = tempfile.mkdtemp(dir=os.path.join(REPO_ROOT, ".smoke"))
+    with SpFreshIndex(
+        index, store, LireConfig(max_partition_size=512, min_partition_size=16)
+    ) as fresh:
+        for e in ENGINES:  # compile both layouts' update paths
+            fresh.search(queries, 10, nprobe=nprobe, engine=e)
+        for r in range(rounds):
+            vecs = new[r * batch : (r + 1) * batch]
+            t0 = time.perf_counter()
+            fresh.insert_batch(vecs, np.arange(next_id, next_id + len(vecs)))
+            fresh.flush()
+            upd.append(time.perf_counter() - t0)
+            next_id += len(vecs)
+            order = ENGINES if r % 2 == 0 else tuple(reversed(ENGINES))
+            for e in order:
+                first[e].append(timed(fresh, queries, nprobe, e)[1])
+            for e in order:
+                second[e].append(timed(fresh, queries, nprobe, e)[1])
+            say(f"live round {r}: {len(vecs)} inserts + flush {upd[-1]:.3f} s; "
+                + ", ".join(f"{e} first {first[e][-1] * 1e3:.3f} ms / second "
+                            f"{second[e][-1] * 1e3:.3f} ms" for e in order))
+    shutil.rmtree(store, ignore_errors=True)
+    out = {"insert_flush_median_s": statistics.median(upd)}
+    for e in ENGINES:
+        out[e] = {"first_median_s": statistics.median(first[e]),
+                  "second_median_s": statistics.median(second[e])}
+        say(f"live {e}: first search after an update batch median "
+            f"{out[e]['first_median_s'] * 1e3:.3f} ms, second "
+            f"{out[e]['second_median_s'] * 1e3:.3f} ms over {rounds} rounds")
+    return out
 
 
 def main():
-    p = argparse.ArgumentParser()
-    p.add_argument("--c", type=int, default=10775)
-    p.add_argument("--pad", type=int, default=240)
-    p.add_argument("--d", type=int, default=128)
-    p.add_argument("--q", type=int, default=4096)
-    p.add_argument("--nprobe", type=int, default=8)
-    args = p.parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--nq", type=int, default=16_384)
+    ap.add_argument("--nq-live", type=int, default=1_024)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--batch", type=int, default=1_000)
+    ap.add_argument("--seed", type=int, default=12345)
+    ap.add_argument("--nprobe", type=int, default=None,
+                    help="probe count to time (default: the sweep's 0.90 point)")
+    args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("rerank_bench: needs a GPU")
+    card = card_name()
 
-    C, pad, d, Q, nprobe = args.c, args.pad, args.d, args.q, args.nprobe
-    interp = jax.devices()[0].platform != "tpu"
-    rng = np.random.default_rng(0)
+    def say(msg):
+        print(f"[{card}] {msg}", flush=True)
 
-    cents = rng.standard_normal((C, d)).astype(np.float32)
-    resid = rng.standard_normal((C, pad, d)).astype(np.float32)
-    scales_c = (np.abs(resid).max(axis=(1, 2)) / 127.0).astype(np.float32)
-    codes = np.clip(
-        np.rint(resid / scales_c[:, None, None]), -127, 127
-    ).astype(np.int8)
-    slabs_bf16 = jnp.asarray(
-        cents[:, None, :] + resid, jnp.bfloat16
-    )                                               # (C, pad, d)
-    slabs_int8 = jnp.asarray(codes)
-    queries = jnp.asarray(rng.standard_normal((Q, d)).astype(np.float32))
-    rows = jnp.asarray(rng.integers(0, C, (Q, nprobe)).astype(np.int32))
-    scales = jnp.asarray(scales_c)[rows]            # (Q, nprobe)
-    qc = queries[:, None, :] - jnp.asarray(cents)[rows]  # (Q, nprobe, d)
-    jax.block_until_ready((slabs_bf16, slabs_int8, queries, rows, scales, qc))
+    extra = args.rounds * args.batch
+    data, queries = mixture_corpus(args.n + extra, args.nq, 128, seed=args.seed)
+    data, new = data[: args.n], data[args.n :]
+    t0 = time.perf_counter()
+    index = SpannIndexBuilder(sift1m_config("bfloat16")).with_data(data).build(
+        save=False)
+    say(f"build {args.n} x 128 bf16: {time.perf_counter() - t0:.3f} s, "
+        f"{index.num_clusters} clusters")
+    _, gt = brute_force_search(data, queries, 10)
+    nprobe = args.nprobe
+    for npb in NPROBE_SWEEP if nprobe is None else ():
+        ids, _ = index.search(queries, 10, nprobe=npb)
+        if recall_at_k(ids, gt, 10) >= 0.90:
+            nprobe = npb
+            break
+    if nprobe is None:
+        raise SystemExit("recall@10 never reached 0.90")
 
-    gb = Q * nprobe * pad * d / 1e9  # slab elements touched, in billions
-    t_bf, _ = bench(
-        padded_rerank_distances, queries, rows, slabs_bf16,
-        interpret=interp,
-    )
-    print(
-        f"bf16  rerank {t_bf * 1e3:8.2f} ms   "
-        f"{gb * 2 / t_bf:7.1f} GB/s slab stream", flush=True,
-    )
-    t_i8, _ = bench(
-        padded_rerank_distances, queries, rows, slabs_int8,
-        interpret=interp, scales=scales, centered_queries=qc,
-    )
-    print(
-        f"int8  rerank {t_i8 * 1e3:8.2f} ms   "
-        f"{gb * 1 / t_i8:7.1f} GB/s slab stream   "
-        f"ratio {t_i8 / t_bf:4.2f}x", flush=True,
-    )
-    # Cost isolation: int8 slabs through the FLOAT kernel path (wrong math,
-    # right cost structure) — separates the int8->f32 convert + int8 VMEM
-    # relayout cost from the quantized variant's extra machinery (per-probe
-    # centered-query block, dynamic qc row select, scale multiply).
-    t_i8f, _ = bench(
-        padded_rerank_distances, queries, rows, slabs_int8,
-        interpret=interp,
-    )
-    print(
-        f"int8-as-float (cost probe, wrong math) {t_i8f * 1e3:8.2f} ms   "
-        f"ratio {t_i8f / t_bf:4.2f}x vs bf16", flush=True,
-    )
-    # And the quantized machinery at f32 convert cost: bf16 slabs through
-    # the QUANTIZED path with scale=1 codes (bf16 'codes' are just the
-    # residuals; math valid).
-    slabs_resid = jnp.asarray(resid, jnp.bfloat16)
-    ones = jnp.ones_like(scales)
-    t_bfq, _ = bench(
-        padded_rerank_distances, queries, rows, slabs_resid,
-        interpret=interp, scales=ones, centered_queries=qc,
-    )
-    print(
-        f"bf16-residual-quantized-path {t_bfq * 1e3:8.2f} ms   "
-        f"ratio {t_bfq / t_bf:4.2f}x vs bf16", flush=True,
-    )
-    # Expansion-form IVF-SQ8 (int8-MXU): quantized centered queries, the
-    # r.qc dot on the MXU, per-element VPU work ~1 op (f32-accum) or 0
-    # (native int8).  Each guarded: a Mosaic refusal prints FAIL and the
-    # earlier rows stand.
-    from spfresh_tpu.ops.pallas.rerank import (
-        padded_rerank_distances_int8mxu,
-        quantize_centered_queries,
-    )
-
-    codesT = jnp.asarray(np.ascontiguousarray(codes.transpose(0, 2, 1)))
-    norms2 = jnp.asarray(
-        (codes.astype(np.int64) ** 2).sum(axis=2).astype(np.int32)
-    )
-    qcodes, qscale, qnorm2 = quantize_centered_queries(
-        queries, jnp.asarray(cents), rows
-    )
-    jax.block_until_ready((codesT, norms2, qcodes, qscale, qnorm2))
-    for name, native in (("int8-mxu-f32acc", False), ("int8-mxu-native", True)):
-        try:
-            t_mxu, _ = bench(
-                padded_rerank_distances_int8mxu,
-                qcodes, qscale, qnorm2, rows, codesT, norms2,
-                jnp.asarray(scales_c), interpret=interp, native_int8=native,
-            )
-            print(
-                f"{name} {t_mxu * 1e3:8.2f} ms   "
-                f"{gb * 1 / t_mxu:7.1f} GB/s slab stream   "
-                f"ratio {t_mxu / t_bf:4.2f}x vs bf16   "
-                f"{t_mxu / t_i8:4.2f}x vs int8-elementwise", flush=True,
-            )
-        except Exception as e:  # noqa: BLE001 — report, keep earlier rows
-            print(f"{name} FAIL {type(e).__name__}: {str(e)[:300]}",
-                  flush=True)
+    result = {"card": card, "nprobe": nprobe, "nq": args.nq,
+              "static": static_rounds(index, queries, nprobe, gt, args.reps, say)}
+    if args.rounds:
+        os.makedirs(os.path.join(REPO_ROOT, ".smoke"), exist_ok=True)
+        result["live"] = live_rounds(
+            index, new, queries[: args.nq_live], nprobe, args.rounds,
+            args.batch, say)
+    print(json.dumps(result), flush=True)
 
 
 if __name__ == "__main__":

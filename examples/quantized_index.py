@@ -17,6 +17,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from spfresh_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 from spfresh_tpu.eval import recall_at_k
 from spfresh_tpu.index import Config, SpannIndexBuilder, brute_force_search
 

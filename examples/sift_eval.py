@@ -14,6 +14,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from spfresh_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 import argparse
 import logging
 import time

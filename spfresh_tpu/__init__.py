@@ -1,10 +1,10 @@
-"""spfresh_tpu — a TPU-native SPANN/SPFresh approximate-nearest-neighbor engine.
+"""spfresh_tpu — a JAX SPANN/SPFresh approximate-nearest-neighbor engine.
 
 Built from scratch in JAX/XLA/Pallas with the capability surface of the
 SPFresh reference (see SURVEY.md): hierarchical balanced clustering into
-posting lists, an HBM-resident centroid index scanned with fused
+posting lists, a device-resident centroid index scanned with fused
 distance/top-nprobe kernels, disk persistence, metric-pluggable search,
-SPFresh/LIRE in-place updates, and multi-chip scale-out over a
+SPFresh/LIRE in-place updates, and multi-device scale-out over a
 ``jax.sharding.Mesh``.
 """
 

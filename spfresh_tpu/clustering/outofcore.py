@@ -4,8 +4,8 @@ np.memmap), the device sees only fixed-size row tiles.
 The reference builds strictly in memory (spann_builder.rs:25-64 materializes
 the full Array2 and clusters it), so its disk-backed design can only SEARCH
 corpora larger than RAM, never build them.  This module supplies the missing
-capability with a TPU-first shape — HBM holds one row tile + the centroid
-matrix + O(tile) running state, never the corpus:
+capability with an accelerator-first shape — device memory holds one row
+tile + the centroid matrix + O(tile) running state, never the corpus:
 
 1. **Sample fit** — learn centroids on a seeded uniform sample with the
    balance cap scaled by the sampling ratio (the standard big-ANN recipe:
@@ -27,8 +27,8 @@ matrix + O(tile) running state, never the corpus:
    d(p, c_j) < bt * d(p, c_base) AND d(c_base, c_j) >= d(p, c_j)) and the
    same per-cluster ``replica_overflow`` budget (closest replicas win).
 
-Transfers route through the xfer accounting, so the weatherproof bench
-decomposition (link vs device time) extends to out-of-core builds.
+Transfers route through the xfer accounting (utils/xfer.py), so a build
+reports its host<->device copy time beside its wall time.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ def _dev_dtype(wire: bool, metric: str):
     """Device dtype for streamed tiles/centroids: bf16 when the corpus rides
     the bf16 wire (the values are exactly bf16-representable, and bf16 x
     bf16 products are exact in the f32 accumulator) — the assign/replica
-    kernels then take the 1-pass MXU path instead of the 6-pass f32
-    HIGHEST decomposition.  Euclidean only; see hierarchical.py's
+    kernels then take the bf16 matmul path instead of the f32 HIGHEST
+    one.  Euclidean only; see hierarchical.py's
     _finalize_replication for the full argument."""
     if wire and canonical_metric(metric) == EUCLIDEAN:
         return jnp.bfloat16
@@ -69,7 +69,7 @@ def _dev_dtype(wire: bool, metric: str):
 __all__ = ["fit_outofcore", "OutOfCoreResult", "DEFAULT_TILE_ROWS"]
 
 # Device tile default: 64k rows x 128-d f32 = 32 MB per staged tile; the
-# adaptive centroid chunk (see _ENTRY_BUDGET) bounds per-dispatch HBM
+# adaptive centroid chunk (see _ENTRY_BUDGET) bounds per-dispatch device
 # scratch regardless of corpus size, centroid count, or caller tile_rows.
 DEFAULT_TILE_ROWS = 65_536
 _CENT_CHUNK = 8_192
@@ -341,20 +341,6 @@ def _stream_base(
         base[s0:e0] = timed_pull(b0)[: e0 - s0]
         db[s0:e0] = timed_pull(d0)[: e0 - s0]
 
-    from spfresh_tpu.clustering.hierarchical import _use_pallas_replica
-
-    use_pallas = _use_pallas_replica(metric, 1)
-    if use_pallas:
-        from spfresh_tpu.ops.pallas.replica import (
-            pad_centroids_far, pallas_nearest_centroid,
-        )
-
-        plat = (devs[0] or jax.devices()[0]).platform
-        interp = plat != "tpu"
-        # FAR-bucket-pad once per device, not once per tile: the kernel's
-        # compiled shape depends on the bucket, and the eager pad is a few
-        # dispatches (~1500 tiles at 100M would pay them each otherwise).
-        cents_pallas = [pad_centroids_far(cd[:C]) for cd in cents_devs]
     # Uniform tile shapes: pad the ragged last tile so every dispatch hits
     # the same compiled program; dispatches run ahead of pulls (window
     # scales with device count so every chip stays busy).
@@ -363,28 +349,9 @@ def _stream_base(
         Xt = _stage_tile(data, s, e, tile_rows, wire)
         dv = devs[ti % len(devs)]
         cents_dev = cents_devs[ti % len(devs)]
-        if use_pallas:
-            # Streaming Pallas argmin (ops/pallas/replica.py): the XLA tile
-            # below materializes (tile, chunk) distance workspaces in HBM
-            # per chunk — at 20M x 233k that phase measured 298 s for ~10 s
-            # of MXU work.
-            try:
-                b_i, d_i = pallas_nearest_centroid(
-                    timed_put(Xt, dv).astype(dd),
-                    cents_pallas[ti % len(devs)],
-                    interpret=interp,
-                    cents_prepadded=True,
-                )
-            except Exception:  # Mosaic compile failure: XLA route instead
-                from spfresh_tpu.ops.pallas import replica as _rk
-
-                _rk.mark_unavailable()
-                use_pallas = False
-        if not use_pallas:
-            b_i, d_i = _oc_base_tile(
-                timed_put(Xt, dv).astype(dd), cents_dev, metric,
-                chunk, C,
-            )
+        b_i, d_i = _oc_base_tile(
+            timed_put(Xt, dv).astype(dd), cents_dev, metric, chunk, C,
+        )
         pending.append((s, e, b_i, d_i))
         if len(pending) >= window:
             _drain(pending.pop(0))
@@ -550,19 +517,7 @@ def _stream_replicas(
         cls_l.append(idx[valid].astype(np.int64))
         d_l.append(dists[valid])
 
-    from spfresh_tpu.clustering.hierarchical import _use_pallas_replica
-
-    use_pallas = _use_pallas_replica(params.metric, n_extra)
     soar = float(params.soar_lambda or 0.0)
-    if use_pallas:
-        from spfresh_tpu.ops.pallas.replica import (
-            pad_centroids_far, pallas_replica_topk,
-        )
-
-        plat = (devs[0] or jax.devices()[0]).platform
-        interp = plat != "tpu"
-        # Once per device (see _stream_base): compile-once bucket shapes.
-        cents_pallas = [pad_centroids_far(cd[:C]) for cd in cents_devs]
     window = max(4, 2 * len(devs))
     for ti, s in enumerate(range(0, n, tile_rows)):
         e = min(s + tile_rows, n)
@@ -580,40 +535,18 @@ def _stream_replicas(
                 [thresh_t, np.full(padr, -np.inf, np.float32)]
             )
             db_t = np.concatenate([db_t, np.zeros(padr, np.float32)])
-        if use_pallas:
-            # Streaming Pallas scan: no (t, C) workspaces, no C-wide top_k
-            # (ops/pallas/replica.py) — the dominant phase of the measured
-            # 20M out-of-core build was this loop's XLA form.
-            try:
-                i0, d0 = pallas_replica_topk(
-                    timed_put(Xt, dv).astype(dd),
-                    timed_put(base_t, dv),
-                    cents_pallas[ti % len(devs)],  # FAR rows: never admitted
-                    bt,
-                    n_extra,
-                    db=timed_put(db_t, dv),
-                    soar_lambda=soar,
-                    interpret=interp,
-                    cents_prepadded=True,
-                )
-            except Exception:  # Mosaic compile failure: XLA route instead
-                from spfresh_tpu.ops.pallas import replica as _rk
-
-                _rk.mark_unavailable()
-                use_pallas = False
-        if not use_pallas:
-            d0, i0 = _oc_replica_tile(
-                timed_put(Xt, dv).astype(dd),
-                timed_put(base_t, dv),
-                timed_put(thresh_t, dv),
-                timed_put(db_t, dv),
-                cents_dev,
-                params.metric,
-                chunk,
-                C,
-                n_extra,
-                soar_lambda=soar,
-            )
+        d0, i0 = _oc_replica_tile(
+            timed_put(Xt, dv).astype(dd),
+            timed_put(base_t, dv),
+            timed_put(thresh_t, dv),
+            timed_put(db_t, dv),
+            cents_dev,
+            params.metric,
+            chunk,
+            C,
+            n_extra,
+            soar_lambda=soar,
+        )
         pending.append((s, e, i0, d0))
         if len(pending) >= window:
             _drain(pending.pop(0))

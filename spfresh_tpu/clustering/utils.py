@@ -19,13 +19,14 @@ def masked_means(data: jnp.ndarray, member_mask: jnp.ndarray) -> jnp.ndarray:
     """Per-cluster means from a bool membership mask.
 
     data (n, d), member_mask (n, k) -> (k, d).  The segment-sum is a single
-    mask^T @ data matmul on the MXU.  Empty clusters get a zero mean (callers
+    mask^T @ data matmul (HIGHEST: no TF32 on f32 data).  Empty clusters get a zero mean (callers
     must guard with counts).
     """
     m = member_mask.astype(ACCUM_DTYPE)
     sums = jax.lax.dot_general(
         m, data,
         dimension_numbers=(((0,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=ACCUM_DTYPE,
     )  # (k, d)
     counts = jnp.sum(m, axis=0)[:, None]

@@ -1,17 +1,17 @@
-"""Dtype policy for the TPU build.
+"""Dtype policy for the device build.
 
 The reference bounds usable scalars with a ``SpannFloat`` trait admitting f32/f64
-(/root/reference/src/core/float.rs:9-25).  On TPU the analogous policy is:
+(the reference's src/core/float.rs:9-25).  On the device the analogous policy is:
 
-* **storage dtype** — how vectors live in HBM / on disk.  ``float32`` by default;
-  ``bfloat16`` halves HBM footprint and bandwidth for distance scans (the usual
+* **storage dtype** — how vectors live in device memory / on disk.  ``float32``
+  by default; ``bfloat16`` halves the device footprint and bandwidth for distance scans (the usual
   bottleneck) at a small recall cost.
-* **accumulation dtype** — always ``float32``.  Every matmul on the MXU passes
+* **accumulation dtype** — always ``float32``.  Every matmul passes
   ``preferred_element_type=float32`` so bf16-stored vectors still accumulate
   exactly like the f32 reference within rounding.
 
-float64 is deliberately unsupported on the hot path: TPUs have no f64 ALUs and
-XLA emulates it at >10x cost.  Host-side (numpy) code may hold f64 and is cast
+float64 is deliberately unsupported on the hot path: GPUs run f64 at a small
+fraction of the f32 rate.  Host-side (numpy) code may hold f64 and is cast
 on transfer.
 """
 

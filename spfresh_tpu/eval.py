@@ -1,6 +1,6 @@
 """Recall / precision evaluation harness (parity:
 /root/reference/src/main.rs:73-115 — the reference's end-to-end SIFT-small
-precision driver), batched for TPU.
+precision run), batched on the device.
 
 The reference computes per-query precision = |result intersect gt| / k and
 logs it (main.rs:73-77).  Here evaluation is vectorized over the whole query
@@ -20,6 +20,69 @@ import numpy as np
 from spfresh_tpu.index.spann import SpannIndex, brute_force_search
 
 log = logging.getLogger(__name__)
+
+
+def mixture_corpus(n: int, nq: int, dim: int, seed: int, spread: float = 0.7,
+                   latent_dim: Optional[int] = None):
+    """(data (n, dim), queries (nq, dim)) f32 from a seeded Gaussian mixture.
+
+    Real embedding corpora are clustered; uniform Gaussian noise has no
+    nearest-neighbor structure and degenerates every IVF index to a full
+    scan.  ``max(64, n // 1000)`` centers, each point a center plus
+    ``spread`` x N(0, 1); queries come from the same mixture (as SIFT's
+    do).  ``latent_dim`` L draws the mixture on an L-dimensional linear
+    manifold embedded in ``dim`` plus 1% ambient noise: real descriptor
+    corpora are low-LID (SIFT ~10-13, GIST ~20-30), while a full-rank 960-d
+    Gaussian has LID ~275."""
+    rng = np.random.default_rng(seed)
+    n_centers = max(64, n // 1000)
+    if latent_dim is not None:
+        L = latent_dim
+        proj = rng.standard_normal((L, dim)).astype(np.float32) / np.sqrt(L)
+        centers = rng.standard_normal((n_centers, L)).astype(np.float32)
+
+        def draw(m):
+            a = rng.integers(0, n_centers, size=m)
+            lat = centers[a] + spread * rng.standard_normal((m, L))
+            amb = 0.01 * rng.standard_normal((m, dim))
+            return (lat.astype(np.float32) @ proj + amb).astype(np.float32)
+
+    else:
+        centers = rng.standard_normal((n_centers, dim)).astype(np.float32)
+
+        def draw(m):
+            a = rng.integers(0, n_centers, size=m)
+            return (
+                centers[a] + spread * rng.standard_normal((m, dim))
+            ).astype(np.float32)
+
+    data = draw(n)
+    return data, draw(nq)
+
+
+# nprobe values swept, in order, to find the smallest reaching a recall bar.
+NPROBE_SWEEP = (2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
+
+
+def sift1m_config(storage_dtype: str = "float32", **clustering):
+    """The build configuration of the SIFT1M-shape runs (``chip_smoke.py``,
+    ``benchmarks/rerank_bench.py``): Euclidean, KMeans++, cluster size 256,
+    seed 42; ``clustering`` overrides clustering parameters."""
+    from spfresh_tpu.index.config import Config
+
+    return Config.from_dict(
+        {
+            "clustering_params": {
+                "distance_metric": "Euclidean",
+                "initialization_method": "KMeans++",
+                "initial_k": 16,
+                "desired_cluster_size": 256,
+                "rng_seed": 42,
+                **clustering,
+            },
+            "storage_dtype": storage_dtype,
+        }
+    )
 
 
 def recall_at_k(result_ids: np.ndarray, groundtruth: np.ndarray, k: Optional[int] = None) -> float:

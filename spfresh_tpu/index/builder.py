@@ -5,9 +5,9 @@ reference's balance cap default ``desired_cluster_size = round(0.18 * n)``
 (spann_builder.rs:48-49) unless the config overrides it (the reference never
 lets you — SURVEY.md section 5 "config").
 
-``mesh`` (new in r3): the build's hot loops — assign + medoid, multi-way
+``mesh``: the build's hot loops — assign + medoid, multi-way
 subdivision, the replica pass — run data-sharded over a
-``jax.sharding.Mesh`` with psum/pmax/pmin collectives, the TPU-native
+``jax.sharding.Mesh`` with psum/pmax/pmin collectives, the device
 analogue of the reference's rayon pools (hierarchical.rs:144,261,302).
 ``mesh="auto"`` uses all local devices when more than one REAL accelerator
 is attached (virtual CPU meshes must be passed explicitly — tests do).

@@ -1,4 +1,4 @@
-"""YAML config system (parity: /root/reference/src/spann/config.rs).
+"""YAML/JSON config system (parity: the reference's src/spann/config.rs).
 
 Same schema and validation whitelist as the reference (config.rs:59-87), plus
 the knobs the reference computes internally or hardcodes (SURVEY.md section 5
@@ -12,10 +12,9 @@ them, spann_index.rs:164) and the optional 1.2x dynamic pruning factor
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Any, Dict, Optional
-
-import yaml
 
 from spfresh_tpu.clustering.hierarchical import ClusteringParams, canonical_init
 from spfresh_tpu.ops.distances import canonical_metric
@@ -26,19 +25,15 @@ class SearchConfig:
     nprobe: Optional[int] = None  # None -> nprobe = k (reference behavior)
     prune_factor: Optional[float] = None  # e.g. 1.2 for reference-style pruning
     query_batch_size: int = 4096
-    engine: str = "auto"  # "pallas" | "xla" | "auto" (pallas on TPU)
     # Spare member slots per posting slab: lets live inserts scatter into the
     # device view in place instead of forcing a full repack the moment the
     # largest posting grows by one.
     slab_growth_slots: int = 16
-    # "bfloat16" ships query batches over the host->device link in bf16
-    # (upcast to f32 on device before any kernel math).  Halves the
-    # per-batch query upload — the measured QPS bottleneck on slow links
-    # (2 MB / 4096 queries at 128-d vs ~60 ms of device work).  "bfloat16"
-    # halves the wire (queries carry bf16 rounding); "int8" ships per-query
-    # max-abs-scaled codes + one f32 scale (~1/4 of f32 bytes — the 960-d
-    # serve path is query-wire-bound at 345 ms/batch, r4 gist artifact) and
-    # dequantizes inside the search jit.  Either way results are the exact
+    # "bfloat16" ships query batches to the device in bf16 (upcast to f32
+    # on device before any kernel math), halving the per-batch query upload
+    # (queries carry bf16 rounding); "int8" ships per-query max-abs-scaled
+    # codes + one f32 scale (~1/4 of f32 bytes) and dequantizes inside the
+    # search jit.  Either way results are the exact
     # search at the rounded coordinates, differing only in near-ties;
     # None (default) keeps the exact f32 wire.
     query_wire: Optional[str] = None
@@ -57,8 +52,6 @@ class SearchConfig:
             raise ValueError("search.prune_factor must be >= 1.0")
         if self.query_batch_size <= 0:
             raise ValueError("search.query_batch_size must be > 0")
-        if self.engine not in ("auto", "pallas", "xla"):
-            raise ValueError("search.engine must be 'auto', 'pallas', or 'xla'")
 
 
 @dataclasses.dataclass
@@ -74,12 +67,12 @@ class Config:
     rng_seed: Optional[int] = None
     replication: str = "final"  # "final" (SPANN replica pass) | "nested" (reference parity)
     # Closure-replica knobs (the replication/recall/HBM frontier — see the
-    # RESULTS.md sweep): a point replicates into cluster j only when
+    # sweep): a point replicates into cluster j only when
     # d(p, c_j) < boundary_threshold * d(p, c_base), and a cluster accepts
     # replicas only up to ceil(replica_overflow * cap) total members.
-    # max_replicas=4 is the measured frontier point: the r3 sweep (RESULTS.md)
-    # shows x2.6 stored (vs x3.2 at 8) holds recall 0.915 @ nprobe=8 on the
-    # 1M bench with equal-or-better QPS; published SPANN configs sit ~x1.5-2.
+    # max_replicas=4: on the 1M bench mixture it stores x2.6 (vs x3.2 at 8)
+    # and holds recall 0.915 @ nprobe=8; published SPANN configs sit
+    # ~x1.5-2.
     max_replicas: int = 4
     boundary_threshold: float = 1.1
     replica_overflow: float = 1.25
@@ -88,18 +81,16 @@ class Config:
     # residuals): > 0 ranks admitted closure candidates by
     # D + lambda (r_j.r_1)^2/|r_1|^2 — replicas whose residual is orthogonal
     # to the primary's recover more recall per stored copy.  Euclidean only.
-    # None = AUTO: lambda 0.5 on Euclidean, off otherwise — the r5
-    # same-window device A/B measured +0.0053 recall@nprobe=8 at equal wall
-    # QPS for +1.6% storage (benchmarks/r5_results/bench_1m_soar_r5.json vs
-    # bench_1m_r5.json; the r4 recall sweep saw +0.0085, soar_1m.log).
+    # None = AUTO: lambda 0.5 on Euclidean, off otherwise — on the 1M bench
+    # mixture it added +0.005 to +0.009 recall@nprobe=8 for +1.6% storage.
     # Set 0.0 explicitly for the reference's plain distance ranking.
     soar_lambda: Optional[float] = None
-    storage_dtype: str = "float32"  # or "bfloat16" for HBM-lean indexes
+    storage_dtype: str = "float32"  # or "bfloat16"/"int8" for lean indexes
     # Out-of-core build (clustering/outofcore.py): when set, the corpus
     # stays host-resident (ndarray/np.memmap) — centroids are learned on a
     # ``build_sample_rows`` seeded sample and the corpus streams through the
     # device in ``build_tile_rows`` tiles.  Enables building indexes whose
-    # corpus exceeds HBM (the reference can only SEARCH such corpora).
+    # corpus exceeds device memory (the reference can only SEARCH such corpora).
     build_sample_rows: Optional[int] = None
     build_tile_rows: Optional[int] = None
     search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
@@ -117,7 +108,7 @@ class Config:
         "soar_lambda",
     })
     _SC_KEYS = frozenset({
-        "nprobe", "prune_factor", "query_batch_size", "engine",
+        "nprobe", "prune_factor", "query_batch_size",
         "slab_growth_slots", "query_wire",
     })
 
@@ -126,6 +117,9 @@ class Config:
         raw = dict(raw or {})
         cp = dict(raw.pop("clustering_params", {}) or {})
         sc = dict(raw.pop("search", {}) or {})
+        # Retired key of older saved manifests: the search layout is chosen
+        # from the index's state (SpannIndex.search_layout).
+        sc.pop("engine", None)
         # Reject unknown keys instead of silently ignoring them: a typo'd
         # section name ("clustering" for "clustering_params") used to build
         # an UNSEEDED default-capped index with no error — two tests in this
@@ -174,7 +168,6 @@ class Config:
                 nprobe=sc.get("nprobe"),
                 prune_factor=sc.get("prune_factor"),
                 query_batch_size=int(sc.get("query_batch_size", 4096)),
-                engine=sc.get("engine", "auto"),
                 slab_growth_slots=int(sc.get("slab_growth_slots", 16)),
                 query_wire=sc.get("query_wire"),
             ),
@@ -184,9 +177,15 @@ class Config:
 
     @classmethod
     def from_file(cls, path: str | os.PathLike) -> "Config":
-        """Config::from_file (config.rs:52-57)."""
+        """Config::from_file (config.rs:52-57).  ``.json`` files need only
+        the standard library; anything else is read as YAML (PyYAML)."""
         with open(path, "r") as f:
-            raw = yaml.safe_load(f)
+            if str(path).endswith(".json"):
+                raw = json.load(f)
+            else:
+                import yaml
+
+                raw = yaml.safe_load(f)
         return cls.from_dict(raw or {})
 
     # -- validation / conversion ------------------------------------------
@@ -272,11 +271,12 @@ class Config:
                 "nprobe": self.search.nprobe,
                 "prune_factor": self.search.prune_factor,
                 "query_batch_size": self.search.query_batch_size,
-                "engine": self.search.engine,
                 "slab_growth_slots": self.search.slab_growth_slots,
                 "query_wire": self.search.query_wire,
             },
         }
 
     def __str__(self) -> str:  # Display parity (config.rs:21-48)
+        import yaml
+
         return yaml.safe_dump(self.to_dict(), sort_keys=False)

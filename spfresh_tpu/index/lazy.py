@@ -1,4 +1,4 @@
-"""Disk-backed lazy search — the reference's memory model, TPU-streamed.
+"""Disk-backed lazy search — the reference's memory model, streamed to the device.
 
 The reference keeps only the centroid tree + manifest resident and pages
 posting lists from disk per query (SURVEY.md section 3.3 "Lazy design";

@@ -1,10 +1,10 @@
-// spfresh_native — host-side native runtime for spfresh-tpu.
+// spfresh_native — host-side native runtime for spfresh.
 //
-// The reference implementation is native end-to-end (Rust); the TPU build
+// The reference implementation is native end-to-end (Rust); this build
 // keeps the *compute* path in XLA/Pallas and implements the host runtime
 // around it natively here: mmap'd posting storage, vecs-format IO, and an
 // async batched gather that stages posting slabs in RAM ahead of device
-// upload (the host half of the disk -> host -> HBM streaming pipeline).
+// upload (the host half of the disk -> host -> device streaming pipeline).
 //
 // Exposed as a C ABI consumed via ctypes (no pybind11 in the image).
 // Parity anchors:

@@ -7,6 +7,7 @@ from spfresh_tpu.ops.distances import (
     distance,
     pairwise_distance,
     rowwise_distance,
+    slab_distances,
 )
 from spfresh_tpu.ops.topk import smallest_k, smallest_k_unique
 
@@ -19,6 +20,7 @@ __all__ = [
     "distance",
     "pairwise_distance",
     "rowwise_distance",
+    "slab_distances",
     "smallest_k",
     "smallest_k_unique",
 ]

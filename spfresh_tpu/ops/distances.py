@@ -1,16 +1,15 @@
-"""Batched distance kernels — the TPU-native replacement for the reference's
+"""Batched distance kernels — the accelerator replacement for the reference's
 per-pair trait-object kernels (/root/reference/src/distances/distance.rs:7-43).
 
 The reference computes one scalar distance per call behind ``dyn
 DistanceMetric``; every hot loop there is a Python-style loop over pairs.  On
-TPU the unit of work is a *matrix* of distances:
+the device the unit of work is a *matrix* of distances:
 
-* ``squared_euclidean`` rides the MXU via the expansion
+* ``squared_euclidean`` rides the matrix units via the expansion
   ``|x - y|^2 = |x|^2 + |y|^2 - 2 x.y`` — a single large matmul plus rank-1
   corrections, O(n*m*d) FLOPs at matmul speed.
-* ``manhattan`` / ``chebyshev`` are elementwise |x-y| reductions on the VPU,
-  tiled so the (tile_n, m, d) broadcast intermediate stays within HBM/VMEM
-  budget.
+* ``manhattan`` / ``chebyshev`` are elementwise |x-y| reductions, tiled so
+  the (tile_n, m, d) broadcast intermediate stays within a memory budget.
 
 All functions accept f32 or bf16 inputs and accumulate in f32
 (``preferred_element_type``), matching the f32 reference semantics.
@@ -54,7 +53,10 @@ def canonical_metric(name: str) -> str:
 
 
 def _sq_l2_pairwise(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
-    # MXU path: |x|^2 + |y|^2 - 2 x.y with f32 accumulation.
+    # Matmul path: |x|^2 + |y|^2 - 2 x.y with f32 accumulation.  HIGHEST
+    # keeps f32 operands out of TF32 on the GPU: the closure rule, the
+    # medoid argmin and the ground-truth prefilter are sensitive at TF32's
+    # ~10 mantissa bits.  bf16 x bf16 products are exact either way.
     xf = x.astype(ACCUM_DTYPE)
     yf = y.astype(ACCUM_DTYPE)
     x2 = jnp.sum(xf * xf, axis=-1, keepdims=True)  # (n, 1)
@@ -63,6 +65,7 @@ def _sq_l2_pairwise(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
         x,
         y,
         dimension_numbers=(((1,), (1,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=ACCUM_DTYPE,
     )
     d = x2 + y2[None, :] - 2.0 * xy
@@ -71,8 +74,9 @@ def _sq_l2_pairwise(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
 
 
 def _elementwise_pairwise(x: jnp.ndarray, y: jnp.ndarray, metric: str, tile_n: int) -> jnp.ndarray:
-    """VPU path: tiled (x[:,None,:] - y[None,:,:]) reduction.  Also serves as
-    the *exact* squared-L2 path — the MXU expansion loses ~1e-3 relative
+    """Elementwise path: tiled (x[:,None,:] - y[None,:,:]) reduction.  XLA
+    fuses each tile's subtract, abs and sum/max into one reduction.  Also
+    serves as the *exact* squared-L2 path — the matmul expansion loses ~1e-3 relative
     precision to cancellation, which matters for ground-truth computation."""
     xf = x.astype(ACCUM_DTYPE)
     yf = y.astype(ACCUM_DTYPE)
@@ -109,7 +113,7 @@ def pairwise_distance(
 
     Returns an (n, m) f32 matrix.  ``metric`` is one of
     ``"Euclidean"`` (squared L2), ``"Manhattan"`` (L1), ``"Chebyshev"`` (Linf).
-    For Euclidean, ``exact=False`` (default) uses the fast MXU expansion
+    For Euclidean, ``exact=False`` (default) uses the fast matmul expansion
     (adequate for probe selection); ``exact=True`` uses the elementwise
     difference form (bit-matched with ``rowwise_distance``, for rerank-grade
     precision and ground truth).
@@ -121,17 +125,6 @@ def pairwise_distance(
         raise ValueError(f"dimension mismatch: {x.shape[-1]} vs {y.shape[-1]}")
     if metric == EUCLIDEAN and not exact:
         return _sq_l2_pairwise(x, y)
-    if (
-        metric in (MANHATTAN, CHEBYSHEV)
-        and x.shape[0] * y.shape[0] * x.shape[1] >= (1 << 22)
-        and jax.devices()[0].platform == "tpu"
-    ):
-        # XLA's broadcast-reduce lowering of the L1 sum is pathologically
-        # slow at high d (measured 72 s vs the kernel's ~0.1 s at GIST
-        # shapes); the tiled Pallas kernel serves both L1 and Linf.
-        from spfresh_tpu.ops.pallas.pairwise import pallas_l1_linf_pairwise
-
-        return pallas_l1_linf_pairwise(x, y, metric)
     return _elementwise_pairwise(x, y, metric, tile_n)
 
 
@@ -152,7 +145,7 @@ def distance(u: jnp.ndarray, v: jnp.ndarray, metric: str = EUCLIDEAN) -> jnp.nda
 
 def distance_f64(u, v, metric: str = EUCLIDEAN) -> np.float64:
     """HOST-path float64 distance — the reference's ``SpannFloat`` admits f32
-    AND f64 (/root/reference/src/core/float.rs:24-25); TPU has no f64 ALUs,
+    AND f64 (the reference's src/core/float.rs:24-25); the device path is f32,
     so the f64 capability lives on the host (numpy), exact to f64 semantics.
     Use for verification/ground-truth work; the device hot path is
     f32-accumulated by policy (core/dtypes.py)."""
@@ -179,3 +172,25 @@ def rowwise_distance(x: jnp.ndarray, y: jnp.ndarray, metric: str = EUCLIDEAN) ->
     if metric == MANHATTAN:
         return jnp.sum(jnp.abs(diff), axis=-1)
     return jnp.max(jnp.abs(diff), axis=-1)
+
+
+def slab_distances(queries, rows, vectors3d, metric: str = EUCLIDEAN,
+                   scales=None, centered_queries=None) -> jnp.ndarray:
+    """Stage 2 of the slab search engine: (Q, nprobe, pad) f32 distances
+    between each query and every row of each probed posting slab, as one
+    XLA gather of whole ``(pad, d)`` slabs plus a reduction (XLA fuses the
+    two).
+
+    Float slabs compare against ``queries`` (Q, d).  int8 slabs hold
+    IVF-SQ8 residual codes and take ``scales`` (Q, nprobe) and the probe's
+    CENTERED queries ``centered_queries`` (Q, nprobe, d) = q - c_j, so
+    |s * r - (q - c_j)| == |x - q|.  ``rows`` may point at any valid slab
+    for probes the caller masks afterwards."""
+    metric = canonical_metric(metric)
+    v = vectors3d[rows].astype(ACCUM_DTYPE)  # (Q, nprobe, pad, d)
+    if scales is not None:
+        v = v * scales.astype(ACCUM_DTYPE)[..., None, None]
+        qv = centered_queries.astype(ACCUM_DTYPE)[:, :, None, :]
+    else:
+        qv = queries.astype(ACCUM_DTYPE)[:, None, None, :]
+    return rowwise_distance(v, qv, metric)

@@ -1,7 +1,7 @@
 """Top-k utilities for nearest-neighbor selection.
 
 The reference sorts a host Vec of candidates and truncates
-(/root/reference/src/spann/spann_index.rs:188-193).  On TPU, selection is
+(the reference's src/spann/spann_index.rs:188-193).  On the device, selection is
 ``jax.lax.top_k`` over negated distances — O(n log k) on-device, batched over
 queries — plus a duplicate-suppression pass needed because SPANN's boundary
 closure replicates points into multiple posting lists (the reference
@@ -17,14 +17,8 @@ import jax.numpy as jnp
 
 # Centroid counts past this use the chunked scan in the search kernels: one
 # (Q, C) distance matrix + top_k over C columns stops being the right shape
-# for XLA's selection at ~100k+ columns (VMEM blowout + O(C log C) select).
+# for XLA's selection at ~100k+ columns (memory + O(C log C) select).
 LARGE_C_THRESHOLD = 32_768
-
-# Stage-1 selection is lax.top_k everywhere.  A k-masked-argmin-rounds
-# variant (`smallest_k_rounds`) was built and measured as an alternative;
-# on device it lost at every k at the bench's operating shape (C=12,500,
-# Q=4096: 0.90x/0.85x/0.79x/0.45x top_k at k=4/8/16/32 —
-# benchmarks/r4_results/topk_bench2.log), so it was deleted in round 5.
 
 
 @functools.partial(jax.jit, static_argnames=("nprobe", "metric", "chunk"))
@@ -33,7 +27,7 @@ def chunked_centroid_topk(qf, centroids, cent_valid, nprobe: int,
     """Fused centroid scan + running top-nprobe for LARGE centroid counts.
 
     Streams the (C, d) centroid matrix in ``chunk``-row tiles: each step
-    computes the (Q, chunk) distance block on the MXU and folds it into the
+    computes the (Q, chunk) distance block as a matmul and folds it into the
     running per-query best-nprobe via a (nprobe + chunk)-column top_k — the
     full (Q, C) matrix never materializes and selection cost is
     O(C/chunk * (chunk + nprobe) log nprobe) instead of one giant sort.
@@ -76,17 +70,6 @@ def centroid_topk(qf, centroids, cent_valid, nprobe: int, metric: str):
     C = centroids.shape[0]
     if cent_valid is None:
         cent_valid = jnp.ones((C,), bool)
-    if (
-        C > LARGE_C_THRESHOLD
-        and nprobe <= 128
-        and metric == "Euclidean"
-        and jax.devices()[0].platform == "tpu"
-    ):
-        # Fused Pallas scan + windowed exact selection: one matmul pass, no
-        # per-chunk top_k over (nprobe + chunk) columns (see centroid_scan.py).
-        from spfresh_tpu.ops.pallas.centroid_scan import windowed_centroid_topk
-
-        return windowed_centroid_topk(qf, centroids, cent_valid, nprobe)
     if C > LARGE_C_THRESHOLD and nprobe <= 1024:
         return chunked_centroid_topk(qf, centroids, cent_valid, nprobe, metric)
     Dc = pairwise_distance(qf, centroids, metric)

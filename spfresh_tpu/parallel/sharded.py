@@ -1,12 +1,13 @@
 """Multi-chip SPANN search over a ``jax.sharding.Mesh``.
 
 The reference is a single-process library whose only fan-out is rayon threads
-(SURVEY.md section 2, "Parallelism strategies").  The TPU-native scale-out
-axis is the vector corpus: posting lists and their centroids are sharded
-across devices; every chip scans its centroid shard, reranks its local
-posting lists, and the per-shard top-k results meet in an ``all_gather``
-over ICI followed by a replicated merge (SURVEY.md section 5, "Distributed
-communication backend").  No custom transport — XLA collectives ride ICI.
+(SURVEY.md section 2, "Parallelism strategies").  Here the scale-out axis
+is the vector corpus: posting lists and their centroids are sharded across
+devices; every device scans its centroid shard, reranks its local posting
+lists, and the per-shard top-k results meet in an ``all_gather`` followed
+by a replicated merge (SURVEY.md section 5, "Distributed communication
+backend").  No custom transport — XLA's collectives carry the merge (NCCL
+over NVLink on a multi-GPU host).
 
 Layout: clusters are dealt to shards in size-balanced round-robin order; each
 shard's CSR block is padded to the same static shape so one program serves
@@ -17,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import logging
 from typing import Dict, List, Optional, Tuple
 
 import jax
@@ -32,11 +32,14 @@ from spfresh_tpu.index.spann import (
     _max_multiplicity,
     _round_up,
 )
-from spfresh_tpu.ops.distances import pairwise_distance, rowwise_distance
+from spfresh_tpu.ops.distances import (
+    pairwise_distance,
+    rowwise_distance,
+    slab_distances,
+)
 from spfresh_tpu.ops.topk import centroid_topk, smallest_k, smallest_k_unique
 
 _F32_EPS = float(np.finfo(np.float32).eps)
-log = logging.getLogger(__name__)
 
 
 def default_mesh(axis: str = "shard", devices=None) -> Mesh:
@@ -62,9 +65,9 @@ class ShardedView:
 
 @dataclasses.dataclass
 class ShardedPaddedView:
-    """Per-shard SLAB blocks for the Pallas fast path: each shard's posting
+    """Per-shard SLAB blocks for the slab engine: each shard's posting
     lists are contiguous (pad, d_pad) slabs of its local (Cs, pad, d_pad)
-    array, so the fused rerank kernel streams whole-slab DMAs on every chip.
+    array, so the rerank reads whole slabs on every device.
 
     Update-in-place, like the single-device PaddedView: ``cluster_rows`` maps
     cid -> (shard, row); ``free_rows`` holds each shard's unassigned slab
@@ -97,22 +100,28 @@ class ShardedSpannIndex:
 
     def __init__(self, index: SpannIndex, mesh: Optional[Mesh] = None, axis: str = "shard",
                  engine: str = "auto"):
-        """``engine``: "pallas" (fused slab-DMA rerank per chip, default on
-        TPU), "xla" (gather-based), or "auto"."""
+        """``engine``: "auto" serves the layout the wrapped index's
+        ``search_layout`` picks (CSR until its first live update, padded
+        slabs after it); "slab" or "csr" forces one, to compare the two."""
         self.index = index
         self.metric = index.metric
         self.mesh = mesh if mesh is not None else default_mesh(axis)
         self.axis = self.mesh.axis_names[0]
         self.num_shards = self.mesh.devices.size
-        if engine == "auto":
-            engine = "pallas" if self.mesh.devices.flat[0].platform == "tpu" else "xla"
-        if engine not in ("pallas", "xla"):
+        if engine not in ("auto", "slab", "csr"):
             raise ValueError(f"unknown engine {engine!r}")
-        self.engine = engine
+        self._engine = engine
         self._view: Optional[ShardedView] = None
         self._padded: Optional[ShardedPaddedView] = None
         self._view_gen = -1  # index._gen at view build; stale views rebuild
         self._padded_gen = -1
+
+    @property
+    def engine(self) -> str:
+        """The layout the next search reads: "slab" or "csr"."""
+        if self._engine == "auto":
+            return self.index.search_layout()
+        return self._engine
 
     # -- sharded layout ----------------------------------------------------
 
@@ -163,7 +172,7 @@ class ShardedSpannIndex:
         spec = NamedSharding(self.mesh, P(self.axis))
         # device_put straight from numpy: staging through jnp.asarray would
         # commit each array to the *default* backend first — wrong placement,
-        # and a hard failure when virtualizing a CPU mesh over a broken TPU.
+        # and a hard failure for a CPU mesh when another backend is default.
         sd = idx.policy.storage_dtype
         quant = idx.policy.quantized
         scales = np.ones((S, Cs), np.float32)
@@ -483,9 +492,7 @@ class ShardedSpannIndex:
     # -- search ------------------------------------------------------------
     # The jitted kernels live at MODULE level, keyed on (mesh, axis, metric,
     # pad, shapes) — constructing a second ShardedSpannIndex on the same mesh
-    # reuses the compiled programs instead of recompiling per instance
-    # (VERDICT r2 item 8: the multi-chip path is exactly where dispatch and
-    # compile latency hurt most).
+    # reuses the compiled programs instead of recompiling per instance.
 
     def search(
         self, queries, k: int, nprobe: Optional[int] = None,
@@ -526,8 +533,9 @@ class ShardedSpannIndex:
         out_i, out_d = [], []
         S = self.num_shards
         engine = self.engine
-        req_nprobe = int(nprobe)
-        if engine == "pallas":
+        if engine == "slab":
+            if self._engine == "auto":
+                self._view = None  # the CSR snapshot is no longer served
             view = self.padded_view()
             local_np = max(1, min(int(nprobe), int(view.centroids.shape[1])))
             # The threshold depth is the REQUESTED total-probe budget; the
@@ -536,15 +544,10 @@ class ShardedSpannIndex:
             # local_np = min(nprobe, Cs) always suffices).
             global_k = max(1, min(int(nprobe), S * local_np)) if global_np else 0
             nprobe = local_np
-            interpret = self.mesh.devices.flat[0].platform != "tpu"
-            # Per-chip SMEM budget for the scalar-prefetch tables (rows, and
-            # for int8 also the dequant scales) — same guard as the
-            # single-device engine (spann.py): Q * nprobe * tables int32/f32
-            # entries must fit in ~512 KB.
-            smem_entries = 1 << 17
-            tables = 2 if self.index.policy.quantized else 1
+            # Bound each device's (batch, nprobe, pad) f32 distance block to
+            # ~1 GB.
             batch_size = min(
-                batch_size, max(8, smem_entries // max(1, nprobe * tables))
+                batch_size, max(1, (1 << 30) // (nprobe * view.pad * 4))
             )
             qpad = np.zeros((queries.shape[0], view.d_pad), np.float32)
             qpad[:, : self.index.dim] = queries
@@ -552,33 +555,18 @@ class ShardedSpannIndex:
                 view.centroids, view.cent_valid, view.lens,
                 view.ids2d, view.vectors3d, view.scales,
             )
-            try:
-                for s in range(0, queries.shape[0], batch_size):
-                    qi, qd = _sharded_search_padded(
-                        jax.device_put(qpad[s : s + batch_size], qspec),
-                        arrays, pf,
-                        mesh=self.mesh, axis=self.axis, metric=self.metric,
-                        pad=view.pad, k=int(k), nprobe=nprobe, prune=prune,
-                        interpret=interpret, global_k=global_k,
-                        max_dup=view.max_dup,
-                    )
-                    out_i.append(np.asarray(qi))
-                    out_d.append(np.asarray(qd))
-            except Exception as e:  # noqa: BLE001 — Mosaic compile failure
-                from spfresh_tpu.index.spann import _pallas_fallback_allowed
-
-                if not _pallas_fallback_allowed(interpret):
-                    raise
-                # Same policy as the single-chip engine: degrade to XLA
-                # (identical results by the parity invariant).
-                log.warning(
-                    "sharded pallas kernel failed (%s: %s); "
-                    "falling back to the XLA engine", type(e).__name__, e,
+            for s in range(0, queries.shape[0], batch_size):
+                qi, qd = _sharded_search_padded(
+                    jax.device_put(qpad[s : s + batch_size], qspec),
+                    arrays, pf,
+                    mesh=self.mesh, axis=self.axis, metric=self.metric,
+                    pad=view.pad, k=int(k), nprobe=nprobe, prune=prune,
+                    global_k=global_k,
+                    max_dup=view.max_dup,
                 )
-                out_i, out_d = [], []
-                nprobe = req_nprobe
-                engine = "xla"
-        if engine == "xla":
+                out_i.append(np.asarray(qi))
+                out_d.append(np.asarray(qd))
+        else:
             view = self.view()
             local_np = max(1, min(int(nprobe), int(view.centroids.shape[1])))
             global_k = max(1, min(int(nprobe), S * local_np)) if global_np else 0
@@ -656,19 +644,17 @@ def _sharded_search_xla(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "metric", "pad", "k", "nprobe", "prune",
-        "interpret", "global_k", "max_dup",
+        "global_k", "max_dup",
     ),
 )
 def _sharded_search_padded(
     queries, view_arrays, prune_factor, *, mesh, axis, metric, pad,
-    k: int, nprobe: int, prune: bool, interpret: bool,
-    global_k: int, max_dup: int,
+    k: int, nprobe: int, prune: bool, global_k: int, max_dup: int,
 ):
-    """Pallas fast path per chip: local centroid scan, fused slab-DMA
-    rerank (padded_rerank_distances) on each shard's slab block, distinct
-    local top-k, collective merge.  Compiled per (mesh, metric, shape)."""
-    from spfresh_tpu.ops.pallas.rerank import padded_rerank_distances
-
+    """Slab engine per device: local centroid scan, gather + rerank of
+    whole posting slabs (``slab_distances``) on each shard's slab block,
+    distinct local top-k, collective merge.  Compiled per (mesh, metric,
+    shape)."""
     centroids, cvalid, lens, ids2d, vecs3d, pscales = view_arrays
 
     def shard_fn(q, pf, cent, cvalid_, lns, pids2d, pvecs3d, pscl):
@@ -685,16 +671,12 @@ def _sharded_search_padded(
                 q.astype(jnp.float32)[:, None, :]
                 - cent[rows].astype(jnp.float32)
             )
-            d = padded_rerank_distances(
-                q.astype(jnp.float32), rows.astype(jnp.int32), pvecs3d,
-                metric, interpret=interpret,
-                scales=pscl[rows], centered_queries=qc,
+            d = slab_distances(
+                q, rows, pvecs3d, metric, scales=pscl[rows],
+                centered_queries=qc,
             )
         else:
-            d = padded_rerank_distances(
-                q.astype(jnp.float32), rows.astype(jnp.int32), pvecs3d,
-                metric, interpret=interpret,
-            )  # (Q, nprobe, pad)
+            d = slab_distances(q, rows, pvecs3d, metric)  # (Q, nprobe, pad)
         ar = jnp.arange(pad, dtype=jnp.int32)
         valid = (ar < lns[rows][..., None]) & jnp.isfinite(cent_d)[..., None]
         cand_ids = jnp.where(valid, pids2d[rows], -1)
@@ -735,7 +717,7 @@ def _global_probe_mask(cent_d, global_k: int, axis: str):
     mask (to inf) every local probe past it.  Downstream validity tests are
     ``isfinite(cent_d)``, so masked probes contribute no candidates — the
     candidate set equals the single-chip index's at the same nprobe (ties
-    at the threshold keep all tied lists).  DMA cost still runs at the
+    at the threshold keep all tied lists).  Slab reads still run at the
     per-shard depth; the saving here is SEMANTIC comparability, not
     bandwidth."""
     all_cd = jax.lax.all_gather(cent_d, axis)  # (S, Q, local_depth)
@@ -805,7 +787,7 @@ def _scatter_rows_sharded(
 
 def _merge_topk(local_d, local_i, axis: str, k: int, max_dup: int):
     """Collective tail shared by both engines: all_gather every shard's
-    distinct local top-k over ICI, merge, dedup replicas across shards."""
+    distinct local top-k over the mesh axis, merge, dedup replicas across shards."""
     all_d = jax.lax.all_gather(local_d, axis)  # (S, Q, k)
     all_i = jax.lax.all_gather(local_i, axis)
     S, Q = all_d.shape[0], all_d.shape[1]
@@ -844,7 +826,7 @@ def _local_candidates(
             + cent[cent_i].astype(jnp.float32)[:, :, None, :]
         )
     cand_ids = jnp.where(valid, pids[pos], -1)
-    d = rowwise_distance(cand_vecs, qf[:, None, None, :], metric)
+    d = rowwise_distance(cand_vecs, q[:, None, None, :], metric)  # unrounded q
     d = jnp.where(valid, d, jnp.inf)
     n_cand = nprobe * pad
     d = d.reshape(Q, n_cand)

@@ -1,5 +1,5 @@
 """Tracing / profiling utilities (SURVEY.md section 5: the reference has only
-`log` macros and ad-hoc external flamegraphs; the TPU equivalent is
+`log` macros and ad-hoc external flamegraphs; the equivalent here is
 jax.profiler traces plus in-process phase timing)."""
 
 from __future__ import annotations

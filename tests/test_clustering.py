@@ -166,15 +166,13 @@ def test_initial_k_validation(toy_data):
         HierarchicalClustering(_params(initial_k=10), toy_data).fit()
 
 
-def test_fused_replica_pass_matches_tiled_oracle(rng):
-    # The fused fori_loop closure pass must reproduce the per-tile oracle
-    # exactly, including the clamped (overlapping) last window.
+def test_replica_pass_groups_match_one_call(rng):
+    # Row groups of the closure pass (including a ragged last group) must
+    # reproduce the one-call result exactly: every row depends only on its
+    # own inputs.
     import jax.numpy as jnp
 
-    from spfresh_tpu.clustering.hierarchical import (
-        _final_replica_pass,
-        _final_replica_pass_fused,
-    )
+    from spfresh_tpu.clustering.hierarchical import _final_replica_pass
 
     n, d, C, n_extra = 333, 16, 37, 3  # n deliberately not a tile multiple
     X = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
@@ -183,9 +181,7 @@ def test_fused_replica_pass_matches_tiled_oracle(rng):
     bt = jnp.float32(1.15)
     for metric in (EUCLIDEAN, MANHATTAN):
         tile = 128
-        fi, fd = _final_replica_pass_fused(
-            X, base, cents, metric, bt, n_extra, tile, -(-n // tile)
-        )
+        fi, fd = _final_replica_pass(X, base, cents, metric, bt, n_extra)
         oi_parts, od_parts = [], []
         for s in range(0, n, tile):
             oi, od = _final_replica_pass(
@@ -201,20 +197,20 @@ def test_fused_replica_pass_matches_tiled_oracle(rng):
 
 
 def test_replica_pass_dispatch_grouping_identical(monkeypatch, rng):
-    # Elementwise metrics bound the per-dispatch work of the XLA closure
-    # pass (the r4 Manhattan 1M session step died UNAVAILABLE when the
-    # whole walk ran as one multi-minute dispatch).  Every output row
-    # depends only on its own inputs, so a tiny forced budget (many row
-    # groups) must reproduce the single-dispatch clustering EXACTLY.
+    # Elementwise metrics run the XLA closure pass in row groups bounded by
+    # the (group, C) workspace.  Every output row depends only on its own
+    # inputs, so a tiny forced workspace (many row groups) must reproduce
+    # the single-group clustering EXACTLY.
+    from spfresh_tpu.clustering import hierarchical as H
+
     data = rng.standard_normal((700, 24)).astype(np.float32)
     kw = dict(
         metric=MANHATTAN, initial_k=2, desired_cluster_size=60,
         max_replicas=4,
     )
-    monkeypatch.delenv("SPF_REPLICA_DISPATCH_OPS", raising=False)
     ref = HierarchicalClustering(_params(**kw), data).fit()
-    # ~700 * C * 24 element-ops total; a 100k budget forces many groups.
-    monkeypatch.setenv("SPF_REPLICA_DISPATCH_OPS", "100000")
+    # 256-row groups (the floor) instead of one group of all 700 rows.
+    monkeypatch.setattr(H, "_REPLICA_WORKSPACE_ELEMS", 1)
     grouped = HierarchicalClustering(_params(**kw), data).fit()
     assert _clusters_snapshot(ref) == _clusters_snapshot(grouped)
 
@@ -324,10 +320,10 @@ def test_resident_subdivision_with_empty_clusters(monkeypatch, rng):
     assert _clusters_snapshot(res) == _clusters_snapshot(classic)
 
 
-def test_resident_failure_falls_back_to_upload_path(monkeypatch, rng):
-    """A resident-driver failure (compile/allocation/link on a real device)
-    must never kill the build: the guard falls back to the member-table
-    upload path and produces exactly the upload-path clustering."""
+def test_resident_failure_fails_the_build(monkeypatch, rng):
+    """A failure of the resident subdivision (compile or allocation on the
+    device) fails the build: nothing swaps the failed route for the upload
+    path."""
     from spfresh_tpu.clustering import hierarchical as H
 
     centers = rng.standard_normal((5, 10)).astype(np.float32)
@@ -338,8 +334,6 @@ def test_resident_failure_falls_back_to_upload_path(monkeypatch, rng):
     kw = dict(initial_k=3, desired_cluster_size=40, max_split_ways=4,
               rng_seed=21)
     monkeypatch.setattr(H, "_HOST_SPLIT_MAX_P", 0)
-    monkeypatch.setenv("SPF_SUBDIV_RESIDENT", "0")
-    classic = HierarchicalClustering(_params(**kw), data).fit()
 
     def boom(self, cap, _p, level):
         raise RuntimeError("injected resident-path device failure")
@@ -347,14 +341,14 @@ def test_resident_failure_falls_back_to_upload_path(monkeypatch, rng):
     monkeypatch.setattr(H.HierarchicalClustering,
                         "_subdivide_multiway_resident", boom)
     monkeypatch.setenv("SPF_SUBDIV_RESIDENT", "1")
-    fallback = HierarchicalClustering(_params(**kw), data).fit()
-    assert _clusters_snapshot(fallback) == _clusters_snapshot(classic)
+    with pytest.raises(RuntimeError, match="injected"):
+        HierarchicalClustering(_params(**kw), data).fit()
 
 
 def test_resident_count_drift_is_never_swallowed(monkeypatch, rng):
-    """The fallback guard must RE-RAISE the ResidentCountDrift correctness
-    sentinel — masking it behind a silent upload-path redo would hide a real
-    kernel regression behind correct-but-doubled-cost builds."""
+    """The ResidentCountDrift correctness sentinel propagates out of the
+    build: a silent upload-path redo would hide a real kernel regression
+    behind correct-but-doubled-cost builds."""
     from spfresh_tpu.clustering import hierarchical as H
 
     data = rng.standard_normal((1500, 8)).astype(np.float32)
@@ -407,7 +401,9 @@ def test_host_tail_threshold_scaling():
     )
 
     assert _tail_rows_for("cpu", 960) == _HOST_SPLIT_MAX_P
-    assert _tail_rows_for("tpu", 128) == _HOST_SPLIT_MAX_P
-    assert _tail_rows_for("tpu", 64) == _HOST_SPLIT_MAX_P  # never raises it
-    assert _tail_rows_for("tpu", 960) == (_HOST_SPLIT_MAX_P * 128) // 960
-    assert _tail_rows_for("tpu", 100_000) == 1 << 14  # floor
+    assert _tail_rows_for("gpu", 128) == _HOST_SPLIT_MAX_P
+    assert _tail_rows_for("gpu", 64) == _HOST_SPLIT_MAX_P  # never raises it
+    assert _tail_rows_for("gpu", 960) == (_HOST_SPLIT_MAX_P * 128) // 960
+    assert _tail_rows_for("gpu", 100_000) == 1 << 14  # floor
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        _tail_rows_for("rocm", 128)

@@ -227,7 +227,7 @@ def test_concurrent_search_update_ram_tier(tmp_path):
                 with deleted_lock:
                     pre = set(deleted_confirmed)
                 ids, _ = fresh.search(q, 8, nprobe=index.num_clusters,
-                                      engine="xla")
+                                      engine="csr")
                 bad = set(ids.reshape(-1).tolist()) & pre
                 if bad:
                     errors.append(
@@ -311,6 +311,6 @@ def test_concurrent_search_update_ram_tier(tmp_path):
     assert not errors, errors
     fresh.flush()
     ids, d = fresh.search(anchor_vec[None, :], 1, nprobe=index.num_clusters,
-                          engine="xla")
+                          engine="csr")
     assert int(ids[0, 0]) == anchor_vid and float(d[0, 0]) < 1e-4
     fresh.close()

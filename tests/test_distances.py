@@ -44,7 +44,7 @@ def test_pairwise_matches_scalar(rng):
     x = rng.standard_normal((17, 5)).astype(np.float32)
     y = rng.standard_normal((9, 5)).astype(np.float32)
     for m in METRICS:
-        # Fast path: MXU expansion for Euclidean loses ~1e-3 rel to
+        # Fast path: the matmul expansion for Euclidean loses ~1e-3 rel to
         # cancellation — acceptable for probe selection, hence loose tol.
         D = np.asarray(pairwise_distance(x, y, m))
         assert D.shape == (17, 9)
@@ -121,3 +121,29 @@ def test_distance_f64_host_path():
     assert distance_f64(a, b) == 1.0
     with pytest.raises(ValueError):
         distance_f64(u, v[:2])
+
+
+@pytest.mark.parametrize("metric", [MANHATTAN, CHEBYSHEV])
+@pytest.mark.parametrize("n,m,d", [(16, 128, 128), (19, 131, 70), (3, 5, 960)])
+def test_elementwise_pairwise_matches_float64(rng, metric, n, m, d):
+    """The tiled broadcast-reduce (the L1/Linf route on every platform)
+    against float64 numpy, up to GIST width."""
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = rng.standard_normal((m, d)).astype(np.float32)
+    out = np.asarray(pairwise_distance(x, y, metric))
+    diff = np.abs(x.astype(np.float64)[:, None, :] - y.astype(np.float64)[None])
+    want = diff.sum(-1) if metric == MANHATTAN else diff.max(-1)
+    np.testing.assert_allclose(out, want, rtol=1e-5)
+
+
+def test_sq_l2_expansion_asks_for_highest_precision():
+    """f32 operands must not meet the expansion's matmul in TF32 on the GPU:
+    the dot carries Precision.HIGHEST in the traced program."""
+    import jax
+
+    from spfresh_tpu.ops.distances import _sq_l2_pairwise
+
+    x = jnp.ones((4, 8), jnp.float32)
+    jaxpr = str(jax.make_jaxpr(_sq_l2_pairwise)(x, x))
+    assert "dot_general" in jaxpr
+    assert "precision=(Precision.HIGHEST, Precision.HIGHEST)" in jaxpr

@@ -1,12 +1,11 @@
 """Driver entry-point contract tests.
 
-The multi-chip dry run is the driver's proof that the sharded path compiles
-and executes; r01 failed it because host data was committed to an unhealthy
-default (TPU) backend mid-``shard_rows``.  These tests pin the contract:
+The multi-device dry run proves that the sharded path compiles and
+executes on a virtual CPU mesh without touching the default backend.  These
+tests pin the contract:
 
 * the in-process dry run works on the virtual CPU mesh;
-* a failing in-process run falls back to a clean CPU subprocess (the
-  "default backend unusable" simulation);
+* a failing in-process run falls back to a clean CPU subprocess;
 * ``replicate``/``shard_rows`` place host data directly onto the mesh,
   never via the default backend.
 """
@@ -39,9 +38,9 @@ def test_dryrun_multichip_inprocess():
 def test_dryrun_falls_back_to_subprocess_when_default_backend_unusable(
     monkeypatch,
 ):
-    """Simulates the r01 driver failure: the in-process run dies (there it
-    was a libtpu mismatch surfacing from a default-backend device_put); the
-    dry run must still succeed via the clean re-exec'd CPU subprocess."""
+    """The in-process run dies (here: a simulated backend error from a
+    default-backend device_put); the dry run must still succeed via the
+    clean re-exec'd CPU subprocess."""
     calls = {"sub": 0}
     real_sub = graft._dryrun_subprocess
 
@@ -50,7 +49,7 @@ def test_dryrun_falls_back_to_subprocess_when_default_backend_unusable(
         real_sub(n)
 
     def broken_impl(n):
-        raise RuntimeError("libtpu version mismatch (simulated)")
+        raise RuntimeError("default backend unusable (simulated)")
 
     monkeypatch.setattr(graft, "_dryrun_multichip_impl", broken_impl)
     monkeypatch.setattr(graft, "_dryrun_subprocess", counting_sub)

@@ -1,6 +1,6 @@
 """Incremental padded-view updates: live mutations scatter into the device
 slabs in place; results must stay EXACTLY equal to a from-scratch pack (the
-xla engine rebuilds fully, so pallas-vs-xla equality proves it)."""
+CSR engine rebuilds fully, so slab-vs-csr equality proves it)."""
 
 import numpy as np
 import pytest
@@ -40,8 +40,8 @@ def test_insert_scatters_in_place(rng):
     # The new vector is reachable and results match the (fully rebuilt) xla
     # engine and brute force.
     q = nv[None, :] + 0.01
-    ids_p, d_p = index.search(q, k=5, nprobe=index.num_clusters, engine="pallas")
-    ids_x, d_x = index.search(q, k=5, nprobe=index.num_clusters, engine="xla")
+    ids_p, d_p = index.search(q, k=5, nprobe=index.num_clusters, engine="slab")
+    ids_x, d_x = index.search(q, k=5, nprobe=index.num_clusters, engine="csr")
     np.testing.assert_array_equal(ids_p, ids_x)
     np.testing.assert_allclose(d_p, d_x, rtol=1e-5, atol=1e-5)
     assert ids_p[0, 0] == 9999
@@ -65,8 +65,8 @@ def test_delete_and_remove_cluster_in_place(rng):
     assert gone not in view.cluster_rows
 
     queries = data[:16]
-    ids_p, _ = index.search(queries, k=8, nprobe=index.num_clusters, engine="pallas")
-    ids_x, _ = index.search(queries, k=8, nprobe=index.num_clusters, engine="xla")
+    ids_p, _ = index.search(queries, k=8, nprobe=index.num_clusters, engine="slab")
+    ids_x, _ = index.search(queries, k=8, nprobe=index.num_clusters, engine="csr")
     np.testing.assert_array_equal(ids_p, ids_x)
     hit = set(ids_p.ravel().tolist())
     assert victim not in hit
@@ -83,7 +83,7 @@ def test_new_cluster_takes_free_row(rng):
     assert view is v0  # same view object, updated in place
     assert view.cluster_rows[cid] is not None
     assert len(view.free_rows) == free_before - 1
-    ids_p, _ = index.search(nv[2:3], k=1, nprobe=index.num_clusters, engine="pallas")
+    ids_p, _ = index.search(nv[2:3], k=1, nprobe=index.num_clusters, engine="slab")
     assert ids_p[0, 0] == 5002
 
 
@@ -104,12 +104,12 @@ def test_slab_overflow_falls_back_to_full_pack(rng):
     view2 = index.padded_view()
     assert view2 is not view
     assert view2.pad > pad
-    ids_p, _ = index.search(extra[0:1], k=1, nprobe=index.num_clusters, engine="pallas")
+    ids_p, _ = index.search(extra[0:1], k=1, nprobe=index.num_clusters, engine="slab")
     assert ids_p[0, 0] == 7000
 
 
 def test_incremental_matches_brute_force_over_update_stream(rng):
-    """Randomized stream of inserts/deletes; after each step the pallas view
+    """Randomized stream of inserts/deletes; after each step the slab view
     (incrementally updated) must return full-probe recall 1.0 vs brute force
     over the live corpus."""
     index, data = _mk_index(rng, n=120, dim=16, clusters=4)
@@ -143,7 +143,7 @@ def test_incremental_matches_brute_force_over_update_stream(rng):
         q = rng.standard_normal((4, 16)).astype(np.float32)
         _, gt_rows = brute_force_search(corpus, q, k=5)
         gt = corpus_ids[gt_rows]
-        ids_p, _ = index.search(q, k=5, nprobe=index.num_clusters, engine="pallas")
+        ids_p, _ = index.search(q, k=5, nprobe=index.num_clusters, engine="slab")
         # full probe, no pruning -> exact (the repo's standing invariant)
         for r in range(4):
             assert set(ids_p[r].tolist()) == set(gt[r].tolist()), step

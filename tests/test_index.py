@@ -303,8 +303,8 @@ def test_high_dim_not_multiple_of_128(tmp_path, rng):
     cfg = _toy_config(tmp_path, clustering_params={"desired_cluster_size": 25, "initial_k": 3})
     index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
     q = rng.standard_normal((4, 60)).astype(np.float32)
-    ids_x, d_x = index.search(q, k=5, nprobe=index.num_clusters, engine="xla")
-    ids_p, d_p = index.search(q, k=5, nprobe=index.num_clusters, engine="pallas")
+    ids_x, d_x = index.search(q, k=5, nprobe=index.num_clusters, engine="csr")
+    ids_p, d_p = index.search(q, k=5, nprobe=index.num_clusters, engine="slab")
     np.testing.assert_array_equal(ids_x, ids_p)
     _, gt = brute_force_search(data, q, k=5)
     for r in range(4):
@@ -458,7 +458,7 @@ def test_bf16_query_wire_matches_rounded_f32_wire(tmp_path, rng):
     i_wire = SpannIndexBuilder(wire).with_data(data).build(save=False)
     q = rng.standard_normal((6, 16)).astype(np.float32)
     q_rounded = q.astype(ml_dtypes.bfloat16).astype(np.float32)
-    for engine in ("xla", "pallas"):
+    for engine in ("csr", "slab"):
         ids_w, d_w = i_wire.search(q, k=5, nprobe=i_wire.num_clusters, engine=engine)
         ids_r, d_r = i_plain.search(
             q_rounded, k=5, nprobe=i_plain.num_clusters, engine=engine
@@ -487,7 +487,7 @@ def test_int8_query_wire_matches_dequantized_f32_wire(tmp_path, rng):
     s = np.maximum(np.abs(q).max(axis=1, keepdims=True), 1e-30) / 127.0
     q_deq = np.clip(np.rint(q / s), -127, 127).astype(np.float32) * s
     q_deq = q_deq.astype(np.float32)
-    for engine in ("xla", "pallas"):
+    for engine in ("csr", "slab"):
         ids_w, d_w = i_wire.search(q, k=5, nprobe=i_wire.num_clusters, engine=engine)
         ids_r, d_r = i_plain.search(
             q_deq, k=5, nprobe=i_plain.num_clusters, engine=engine
@@ -502,10 +502,10 @@ def test_int8_query_wire_matches_dequantized_f32_wire(tmp_path, rng):
     assert rec == 1.0
 
 
-def test_vmem_guard_does_not_materialize_padded_view(tmp_path, rng):
-    """The Pallas VMEM guard must decide pallas-vs-xla from HOST metadata:
-    deciding by packing the padded view and then falling back to xla left
-    the unused multi-GB slab view cached next to the CSR view (ADVICE r2)."""
+def test_csr_engine_does_not_materialize_padded_view(tmp_path, rng):
+    """A search on the CSR engine builds only the CSR device view: packing
+    the slab view as well would hold a second copy of every posting on the
+    device."""
     data = rng.standard_normal((600, 16)).astype(np.float32)
     cfg = Config.from_dict(
         {
@@ -514,32 +514,15 @@ def test_vmem_guard_does_not_materialize_padded_view(tmp_path, rng):
         }
     )
     index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    # Metadata geometry must agree with the materialized view's geometry.
-    Cpad, pad, d_pad = index._padded_geometry()
-    assert index._padded_view is None  # geometry probe did not materialize
-    view = index.padded_view()
-    assert (int(view.centroids.shape[0]), view.pad, view.d_pad) == (
-        Cpad, pad, d_pad,
-    )
-    # A fresh index asked for a pallas search that the guard rejects must
-    # leave the padded view unmaterialized (xla path touched only the CSR
-    # device view).  Force the rejection by shrinking the budget via a huge
-    # nprobe on a tall-pad config: monkeypatch-free, use the real guard by
-    # requesting the full probe count.
-    index2 = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    big_np = index2.num_clusters
-    # pad ~48, eff_np ~ C -> vmem_need is tiny here, so emulate the guard
-    # condition directly instead: geometry from metadata only.
-    assert index2._padded_view is None
-    index2._padded_geometry()
-    assert index2._padded_view is None
+    index.search(data[:4], 5, nprobe=index.num_clusters, engine="csr")
+    assert index._padded_view is None
+    index.search(data[:4], 5, nprobe=index.num_clusters, engine="slab")
+    assert index._padded_view is not None
 
 
-def test_padded_geometry_covers_stale_updatable_view(tmp_path, rng):
-    """After deletes shrink the largest posting, a stale-but-updatable view
-    keeps ITS pad — the guard geometry must size for the worst of the
-    served view and the recomputed metadata, or the engine picks pallas for
-    a slab bigger than it budgeted."""
+def test_slab_engine_exact_after_posting_shrinks(tmp_path, rng):
+    """After deletes shrink the largest posting, the updated slab view keeps
+    its old pad; full-probe slab search must still equal the CSR engine."""
     data = rng.standard_normal((400, 16)).astype(np.float32)
     cfg = Config.from_dict(
         {
@@ -548,44 +531,16 @@ def test_padded_geometry_covers_stale_updatable_view(tmp_path, rng):
         }
     )
     index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    view = index.padded_view()
-    # Shrink the fattest posting hard (in-place update keeps the old pad).
+    pad0 = index.padded_view().pad
     c = max(index.postings, key=lambda c: len(index.postings[c][0]))
     ids, vecs = index.postings[c]
     index.replace_posting(c, ids[:2], vecs[:2])
-    served = index.padded_view()
-    Cpad, pad, d_pad = index._padded_geometry()
-    assert pad >= served.pad
-    assert Cpad >= int(served.centroids.shape[0])
-    assert d_pad >= served.d_pad
-
-
-def test_pallas_search_compile_failure_falls_back_to_xla(tmp_path, rng, monkeypatch):
-    """A Mosaic compile failure in the Pallas search kernel must degrade to
-    the XLA engine (identical results by the parity invariant), not fail
-    the query — same policy as the replica kernels."""
-    import spfresh_tpu.index.spann as S
-
-    data = rng.standard_normal((1500, 16)).astype(np.float32)
-    cfg = Config.from_dict(
-        {
-            "clustering_params": {
-                "initial_k": 4, "desired_cluster_size": 128, "rng_seed": 42,
-            },
-            "output_path": str(tmp_path / "fb"),
-        }
-    )
-    index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    ref_i, ref_d = index.search(data[:5], 5, nprobe=4, engine="xla")
-
-    def boom(*a, **k):
-        raise RuntimeError("mosaic says no")
-
-    monkeypatch.setattr(S, "_search_kernel_padded", boom)
-    monkeypatch.setattr(S, "_pallas_fallback_allowed", lambda interpret: True)
-    ids, d = index.search(data[:5], 5, nprobe=4, engine="pallas")
-    assert np.array_equal(ids, ref_i)
-    np.testing.assert_allclose(d, ref_d, rtol=1e-6)
+    assert index.padded_view().pad >= pad0 - index.config.search.slab_growth_slots
+    q = data[:16]
+    ids_s, d_s = index.search(q, 5, nprobe=index.num_clusters, engine="slab")
+    ids_c, d_c = index.search(q, 5, nprobe=index.num_clusters, engine="csr")
+    np.testing.assert_array_equal(ids_s, ids_c)
+    np.testing.assert_allclose(d_s, d_c, rtol=1e-6)
 
 
 def test_config_rejects_unknown_keys():

@@ -1,10 +1,10 @@
 """int8 storage tier (round 4, beyond-parity): residual scalar quantization
-(IVF-SQ8) at half the HBM/DMA of bfloat16.
+(IVF-SQ8) at half the device bytes of bfloat16.
 
 Design contract (core/dtypes.py, index/spann.py): each posting slab stores
 round((x - centroid_c) / s_c) in int8 with s_c = max|residual| / 127, so the
 quantization step tracks the CLUSTER RADIUS, not the coordinate magnitude.
-Kernels reconstruct x = centroid + s_c * code (the Pallas kernel computes
+Kernels reconstruct x = centroid + s_c * code (the slab rerank computes
 |s*r - (q - c)| from a centered-query block); queries, centroids, and
 reported distances stay in real units.  The disk format stays exact f32;
 scales are a pure function of the f32 members, so reloads are
@@ -74,8 +74,8 @@ def test_int8_engines_identical_and_recall(tmp_path, rng):
     ).astype(np.float32)
     _, gt = brute_force_search(data, q, 10)
     idx = SpannIndexBuilder(_cfg(tmp_path)).with_data(data).build(save=False)
-    i_x, d_x = idx.search(q, 10, nprobe=8, engine="xla")
-    i_p, d_p = idx.search(q, 10, nprobe=8, engine="pallas")
+    i_x, d_x = idx.search(q, 10, nprobe=8, engine="csr")
+    i_p, d_p = idx.search(q, 10, nprobe=8, engine="slab")
     assert np.array_equal(i_x, i_p)  # engines identical on int8 slabs too
     np.testing.assert_allclose(d_x, d_p, rtol=1e-5)
     rec = recall_at_k(i_x, gt, 10)
@@ -89,7 +89,7 @@ def test_int8_self_query_full_probe(tmp_path, rng):
     centers, data = _corpus(rng)
     idx = SpannIndexBuilder(_cfg(tmp_path)).with_data(data).build(save=False)
     q = data[:64]
-    ids, d = idx.search(q, 1, nprobe=idx.num_clusters, engine="xla")
+    ids, d = idx.search(q, 1, nprobe=idx.num_clusters, engine="csr")
     # Separation >> quantization noise: every corpus point finds itself.
     assert np.array_equal(ids[:, 0], np.arange(64))
     assert float(np.max(d)) < 0.05  # quantization floor, near zero
@@ -99,9 +99,9 @@ def test_int8_save_load_bit_identical(tmp_path, rng):
     centers, data = _corpus(rng)
     q = data[200:300] + np.float32(0.01)
     idx = SpannIndexBuilder(_cfg(tmp_path)).with_data(data).build(save=True)
-    i1, d1 = idx.search(q, 10, nprobe=8, engine="xla")
+    i1, d1 = idx.search(q, 10, nprobe=8, engine="csr")
     idx2 = SpannIndex.load(str(tmp_path / "idx_int8"))
-    i2, d2 = idx2.search(q, 10, nprobe=8, engine="xla")
+    i2, d2 = idx2.search(q, 10, nprobe=8, engine="csr")
     assert np.array_equal(i1, i2)
     np.testing.assert_allclose(d1, d2, rtol=1e-6)
 
@@ -114,11 +114,11 @@ def test_int8_live_updates(tmp_path, rng):
     fresh = SpFreshIndex(idx, str(tmp_path / "lire"))
     v = (centers[0] + np.float32(0.01)).astype(np.float32)
     fresh.insert(v, 99999)
-    ids, d = fresh.search(v[None, :], 1, nprobe=idx.num_clusters, engine="xla")
+    ids, d = fresh.search(v[None, :], 1, nprobe=idx.num_clusters, engine="csr")
     assert int(ids[0, 0]) == 99999
     assert float(d[0, 0]) < 0.05
     fresh.delete(99999)
-    ids, _ = fresh.search(v[None, :], 5, nprobe=idx.num_clusters, engine="xla")
+    ids, _ = fresh.search(v[None, :], 5, nprobe=idx.num_clusters, engine="csr")
     assert 99999 not in ids[0]
     fresh.flush()
 
@@ -179,15 +179,15 @@ def test_int8_sharded_search(tmp_path, rng):
     q = data[:32]
     idx = SpannIndexBuilder(_cfg(tmp_path)).with_data(data).build(save=False)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("s",))
-    sh = ShardedSpannIndex(idx, mesh, axis="s", engine="xla")
+    sh = ShardedSpannIndex(idx, mesh, axis="s", engine="csr")
     ids, d = sh.search(q, 1, nprobe=8, nprobe_mode="global")
     assert np.array_equal(ids[:, 0], np.arange(32))
     assert float(np.max(d[:, 0])) < 0.05
 
 
 def test_int8_sharded_pallas_engine(tmp_path, rng):
-    """The quantized Pallas kernel variant (scales scalar-prefetch +
-    centered-query block) under shard_map, interpret mode."""
+    """The quantized slab rerank (per-probe scales + centered-query block)
+    under shard_map equals the sharded CSR engine."""
     import jax
 
     from spfresh_tpu.parallel.sharded import ShardedSpannIndex
@@ -196,9 +196,9 @@ def test_int8_sharded_pallas_engine(tmp_path, rng):
     q = data[:16]
     idx = SpannIndexBuilder(_cfg(tmp_path)).with_data(data).build(save=False)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("s",))
-    shp = ShardedSpannIndex(idx, mesh, axis="s", engine="pallas")
+    shp = ShardedSpannIndex(idx, mesh, axis="s", engine="slab")
     ids_p, d_p = shp.search(q, 1, nprobe=8, nprobe_mode="global")
-    shx = ShardedSpannIndex(idx, mesh, axis="s", engine="xla")
+    shx = ShardedSpannIndex(idx, mesh, axis="s", engine="csr")
     ids_x, d_x = shx.search(q, 1, nprobe=8, nprobe_mode="global")
     assert np.array_equal(ids_p, ids_x)
     np.testing.assert_allclose(d_p, d_x, rtol=1e-5)

@@ -79,20 +79,19 @@ def test_coverage_exactness_and_caps(tmp_path):
     assert max(len(i) for i, _ in idx.postings.values()) <= limit
 
 
-def test_pallas_replica_route(tmp_path, monkeypatch):
-    """The streamed replica pass routed through the Pallas kernel (interpret
-    mode on CPU) keeps every build invariant — coverage, replica cap,
+def test_manhattan_replica_route(tmp_path):
+    """The streamed assign and replica passes on an elementwise metric (no
+    matmul expansion) keep every build invariant — coverage, replica cap,
     full-probe recall 1.0."""
-    monkeypatch.setenv("SPF_REPLICA_ENGINE", "pallas")
     data, q = _corpus(n=6000)
-    cfg = _cfg(tmp_path)
+    cfg = _cfg(tmp_path, clustering_params={"distance_metric": "Manhattan"})
     idx = SpannIndexBuilder(cfg).with_data(data).build(save=False)
     cnt = np.zeros(len(data), np.int64)
     for _, (ids, _) in idx.postings.items():
         cnt[ids] += 1
     assert cnt.min() >= 1
     assert cnt.max() <= cfg.max_replicas
-    _, gt_i = brute_force_search(data, q, 10)
+    _, gt_i = brute_force_search(data, q, 10, metric="Manhattan")
     ids, _ = idx.search(q, 10, nprobe=idx.num_clusters)
     assert recall_at_k(ids, gt_i, 10) == 1.0
 

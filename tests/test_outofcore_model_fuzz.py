@@ -8,8 +8,7 @@ in CI and fresh seeds ground by ``tests/marathon.py`` (suite ``oc``).
 
 Oracles per seed (two builds):
 
-  build A (ndarray corpus, random tile size, randomly the Pallas or XLA
-  replica engine):
+  build A (ndarray corpus, random tile size):
     1. coverage — every corpus row lands in >= 1 posting;
     2. replica cap — no row appears in more than ``max_replicas`` postings,
        and no posting exceeds ceil(replica_overflow * desired_cluster_size);
@@ -17,16 +16,15 @@ Oracles per seed (two builds):
     4. partial-probe dedup — a point id never appears twice in one result
        row.
   build B (same rng_seed, corpus served from a read-only np.memmap, a
-  DIFFERENT tile size, the other replica engine when both are in play):
+  DIFFERENT tile size):
     5. postings + centroids bit-identical to build A — one build checks
-       determinism, tile-size invariance, memmap-vs-ndarray equivalence,
-       and pallas/xla engine agreement at once.
+       determinism, tile-size invariance and memmap-vs-ndarray equivalence
+       at once.
 
 Adversarial corpus shapes are mixed in: exact duplicate rows (top-k ties),
 constant rows, and corpora barely larger than the fit sample.
 """
 
-import os
 from pathlib import Path
 
 import numpy as np
@@ -86,24 +84,16 @@ def _random_case(rng: np.random.Generator):
     return data, q, cfg, (int(tiles[0]), int(tiles[1]))
 
 
-def _build(tmp_path, data, cfg, tile_rows, engine, tag):
+def _build(tmp_path, data, cfg, tile_rows, tag):
     raw = {
         **cfg,
         "clustering_params": dict(cfg["clustering_params"]),
         "output_path": str(tmp_path / f"oc_{tag}"),
         "build_tile_rows": tile_rows,
     }
-    old = os.environ.get("SPF_REPLICA_ENGINE")
-    os.environ["SPF_REPLICA_ENGINE"] = engine
-    try:
-        return SpannIndexBuilder(Config.from_dict(raw)).with_data(data).build(
-            save=False
-        )
-    finally:
-        if old is None:
-            os.environ.pop("SPF_REPLICA_ENGINE", None)
-        else:
-            os.environ["SPF_REPLICA_ENGINE"] = old
+    return SpannIndexBuilder(Config.from_dict(raw)).with_data(data).build(
+        save=False
+    )
 
 
 def run_outofcore_model_fuzz(tmp_path, seed):
@@ -111,10 +101,7 @@ def run_outofcore_model_fuzz(tmp_path, seed):
     data, q, cfg, (tile_a, tile_b) = _random_case(rng)
     n = len(data)
     cp = cfg["clustering_params"]
-    engines = ["xla", "pallas"]
-    rng.shuffle(engines)
-
-    idx = _build(tmp_path, data, cfg, tile_a, engines[0], "a")
+    idx = _build(tmp_path, data, cfg, tile_a, "a")
 
     # 1+2: coverage and the replica/overflow caps.
     cnt = np.zeros(n, np.int64)
@@ -137,13 +124,13 @@ def run_outofcore_model_fuzz(tmp_path, seed):
         real = row[row >= 0]
         assert len(set(real.tolist())) == len(real)
 
-    # 5: second build — memmap corpus, different tile, the other engine —
-    # must be bit-identical (determinism + tile invariance + memmap parity
-    # + pallas/xla agreement in one check).
+    # 5: second build — memmap corpus, different tile — must be
+    # bit-identical (determinism + tile invariance + memmap parity in one
+    # check).
     mm_path = str(tmp_path / "corpus.f32")
     data.tofile(mm_path)
     mm = np.memmap(mm_path, dtype=np.float32, mode="r", shape=data.shape)
-    idx2 = _build(tmp_path, mm, cfg, tile_b, engines[1], "b")
+    idx2 = _build(tmp_path, mm, cfg, tile_b, "b")
     assert sorted(idx.postings) == sorted(idx2.postings)
     for c in idx.postings:
         np.testing.assert_array_equal(idx.postings[c][0], idx2.postings[c][0])

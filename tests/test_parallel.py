@@ -109,7 +109,7 @@ def test_sharded_pruned_search_matches_single_device(tmp_path, rng):
         queries, k=8, nprobe=index.num_clusters, prune_factor=1.2
     )
     ids_1, d_1 = index.search(
-        queries, k=8, nprobe=index.num_clusters, prune_factor=1.2, engine="xla"
+        queries, k=8, nprobe=index.num_clusters, prune_factor=1.2, engine="csr"
     )
     np.testing.assert_array_equal(ids_s, ids_1)
     finite = np.isfinite(d_1)
@@ -137,7 +137,7 @@ def test_spfresh_updates_visible_to_sharded_search(tmp_path, rng):
         fresh.flush()
 
         ids_s, d_s = sharded.search(q, k=10, nprobe=index.num_clusters)
-        ids_1, d_1 = index.search(q, k=10, nprobe=index.num_clusters, engine="xla")
+        ids_1, d_1 = index.search(q, k=10, nprobe=index.num_clusters, engine="csr")
         for r in range(6):
             assert set(ids_s[r].tolist()) == set(ids_1[r].tolist())
         # Inserted vectors are reachable through the sharded path...
@@ -149,13 +149,12 @@ def test_spfresh_updates_visible_to_sharded_search(tmp_path, rng):
 
 
 def test_sharded_pallas_engine_matches_xla(tmp_path, rng):
-    """The per-chip Pallas slab rerank (interpret mode on the CPU mesh) must
-    return the same results as the sharded XLA gather path, with and without
-    pruning."""
+    """The per-device slab engine must return the same results as the
+    sharded CSR gather path, with and without pruning."""
     index, data = _build(tmp_path, rng)
     mesh = default_mesh()
-    sx = ShardedSpannIndex(index, mesh, engine="xla")
-    sp = ShardedSpannIndex(index, mesh, engine="pallas")
+    sx = ShardedSpannIndex(index, mesh, engine="csr")
+    sp = ShardedSpannIndex(index, mesh, engine="slab")
     queries = rng.standard_normal((10, 8)).astype(np.float32)
     for kw in ({}, {"prune_factor": 1.2}):
         ids_x, d_x = sx.search(queries, k=8, nprobe=index.num_clusters, **kw)
@@ -183,7 +182,7 @@ def test_global_nprobe_matches_single_chip(tmp_path, rng):
         )
 
     for nprobe in (2, 4, 8, index.num_clusters):
-        ids_1, _ = index.search(queries, k=5, nprobe=nprobe, engine="xla")
+        ids_1, _ = index.search(queries, k=5, nprobe=nprobe, engine="csr")
         ids_g, _ = sharded.search(
             queries, k=5, nprobe=nprobe, nprobe_mode="global"
         )
@@ -221,7 +220,7 @@ def test_sharded_kernels_shared_across_instances(tmp_path, rng):
     instance)."""
     index, _ = _build(tmp_path, np.random.default_rng(7))
     mesh = default_mesh()
-    s1 = ShardedSpannIndex(index, mesh, engine="xla")
+    s1 = ShardedSpannIndex(index, mesh, engine="csr")
     queries = np.random.default_rng(8).standard_normal((8, 8)).astype(np.float32)
     s1.search(queries, k=5, nprobe=3)
     from spfresh_tpu.parallel.sharded import _sharded_search_xla
@@ -229,40 +228,6 @@ def test_sharded_kernels_shared_across_instances(tmp_path, rng):
     misses_before = _sharded_search_xla._cache_size()
     # Same data -> same view shapes -> the compiled program must be reused.
     index2, _ = _build(tmp_path, np.random.default_rng(7))
-    s2 = ShardedSpannIndex(index2, mesh, engine="xla")
+    s2 = ShardedSpannIndex(index2, mesh, engine="csr")
     s2.search(queries, k=5, nprobe=3)
     assert _sharded_search_xla._cache_size() == misses_before
-
-
-def test_sharded_pallas_compile_failure_falls_back(tmp_path, rng, monkeypatch):
-    import numpy as np
-
-    import spfresh_tpu.parallel.sharded as SH
-    from spfresh_tpu.index import Config, SpannIndexBuilder
-    from spfresh_tpu.parallel import ShardedSpannIndex, default_mesh
-
-    data = rng.standard_normal((600, 8)).astype(np.float32)
-    cfg = Config.from_dict(
-        {
-            "clustering_params": {
-                "initial_k": 4, "desired_cluster_size": 64, "rng_seed": 42,
-            },
-            "output_path": str(tmp_path / "fb"),
-        }
-    )
-    index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    sh = ShardedSpannIndex(index, default_mesh(), engine="pallas")
-    shx = ShardedSpannIndex(index, default_mesh(), engine="xla")
-    q = data[:5]
-    ref_i, ref_d = shx.search(q, 5, nprobe=4, nprobe_mode="global")
-
-    def boom(*a, **k):
-        raise RuntimeError("mosaic says no")
-
-    import spfresh_tpu.index.spann as S
-
-    monkeypatch.setattr(S, "_pallas_fallback_allowed", lambda interpret: True)
-    monkeypatch.setattr(SH, "_sharded_search_padded", boom)
-    ids, d = sh.search(q, 5, nprobe=4, nprobe_mode="global")
-    assert np.array_equal(ids, ref_i)
-    np.testing.assert_allclose(d, ref_d, rtol=1e-6)

@@ -98,7 +98,7 @@ def test_sharded_build_end_to_end_search(rng, tmp_path):
     index = SpannIndex(cfg)
     index.create_posting_lists(hc.clusters, X)
     q = rng.standard_normal((8, 24)).astype(np.float32)
-    ids, _ = index.search(q, k=10, nprobe=index.num_clusters, engine="xla")
+    ids, _ = index.search(q, k=10, nprobe=index.num_clusters, engine="csr")
     _, gt = brute_force_search(X, q, k=10)
     for r in range(8):
         assert set(ids[r].tolist()) == set(gt[r].tolist())
@@ -208,8 +208,8 @@ def test_builder_facade_mesh_build_matches_single_device(rng, tmp_path):
     # The mesh builder's corpus handoff must let the view pack run on-chip
     # and search must agree between the two indexes.
     q = rng.standard_normal((6, 24)).astype(np.float32)
-    i1, d1 = idx1.search(q, k=5, nprobe=idx1.num_clusters, engine="xla")
-    i2, d2 = idx2.search(q, k=5, nprobe=idx2.num_clusters, engine="xla")
+    i1, d1 = idx1.search(q, k=5, nprobe=idx1.num_clusters, engine="csr")
+    i2, d2 = idx2.search(q, k=5, nprobe=idx2.num_clusters, engine="csr")
     np.testing.assert_array_equal(i1, i2)
     np.testing.assert_allclose(d1, d2, rtol=1e-6)
 

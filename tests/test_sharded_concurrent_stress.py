@@ -48,7 +48,7 @@ def test_sharded_search_races_live_updates(tmp_path):
         str(tmp_path / "shc_lire"),
         lire_config=LireConfig(max_partition_size=120, min_partition_size=2),
     )
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="xla")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="csr")
     stop = threading.Event()
     errors = []
     deleted_lock = threading.Lock()
@@ -117,7 +117,7 @@ def test_sharded_search_races_live_updates(tmp_path):
     fresh.flush()
     qs = np.concatenate([anchor_q, data[20:26]], axis=0)
     ids_s, _ = sharded.search(qs, k=8, nprobe=index.num_clusters)
-    ids_1, _ = index.search(qs, k=8, nprobe=index.num_clusters, engine="xla")
+    ids_1, _ = index.search(qs, k=8, nprobe=index.num_clusters, engine="csr")
     for r in range(qs.shape[0]):
         assert set(ids_s[r].tolist()) == set(ids_1[r].tolist())
     # Live-set model: confirmed-deleted vids are gone from the index.

@@ -29,14 +29,14 @@ def _build(tmp_path, rng, n=400, dim=8, cap=40):
 
 def _assert_matches_oracle(sharded, index, queries, k=10):
     ids_s, d_s = sharded.search(queries, k=k, nprobe=index.num_clusters)
-    ids_1, d_1 = index.search(queries, k=k, nprobe=index.num_clusters, engine="xla")
+    ids_1, d_1 = index.search(queries, k=k, nprobe=index.num_clusters, engine="csr")
     for r in range(queries.shape[0]):
         assert set(ids_s[r].tolist()) == set(ids_1[r].tolist())
 
 
 def test_append_path_no_rebuild(tmp_path, rng):
     index, data = _build(tmp_path, rng)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="pallas")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="slab")
     q = rng.standard_normal((6, 8)).astype(np.float32)
     view0 = sharded.padded_view()
     # Streaming-insert shape: grow a few postings by appending new members.
@@ -60,7 +60,7 @@ def test_append_path_no_rebuild(tmp_path, rng):
 
 def test_rewrite_and_new_posting_no_rebuild(tmp_path, rng):
     index, data = _build(tmp_path, rng)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="pallas")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="slab")
     q = rng.standard_normal((6, 8)).astype(np.float32)
     view0 = sharded.padded_view()
     # Delete-shaped mutation: shrink one posting (slab rewrite).
@@ -89,7 +89,7 @@ def test_rewrite_and_new_posting_no_rebuild(tmp_path, rng):
 
 def test_overflow_falls_back_to_rebuild(tmp_path, rng):
     index, data = _build(tmp_path, rng)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="pallas")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="slab")
     view0 = sharded.padded_view()
     # Grow one posting beyond the slab width: must fall back to a full pack.
     c0 = sorted(index.postings)[0]
@@ -112,7 +112,7 @@ def test_xla_engine_view_still_rebuilds_correctly(tmp_path, rng):
     # The CSR (xla) view has no incremental path; generation check must
     # still give fresh results after updates.
     index, data = _build(tmp_path, rng)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="xla")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="csr")
     q = rng.standard_normal((4, 8)).astype(np.float32)
     sharded.search(q, k=5, nprobe=index.num_clusters)
     c0 = sorted(index.postings)[0]
@@ -128,7 +128,7 @@ def test_randomized_mutation_interleaving_matches_oracle(tmp_path, rng):
     round — including rounds whose planning aborts halfway into a repack
     (the ADVICE-r2 deferred-snapshot hazard)."""
     index, data = _build(tmp_path, rng)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="pallas")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="slab")
     q = rng.standard_normal((6, 8)).astype(np.float32)
     next_id = 100_000
     for rnd in range(8):
@@ -205,7 +205,7 @@ def test_int8_sharded_incremental_updates(tmp_path, rng):
         }
     )
     index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="pallas")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="slab")
     q = data[:6]
     view0 = sharded.padded_view()
     _assert_matches_oracle(sharded, index, q)

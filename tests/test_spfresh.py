@@ -326,7 +326,7 @@ def test_delete_batch_retired_fallback_updates_mirror(tmp_path):
         # deleted vector's own coordinates must NOT return its id.
         qv = data[target] if target < len(data) else vecs0[0]
         ids, _ = fresh.search(qv[None, :], 5,
-                              nprobe=fresh.index.num_clusters, engine="xla")
+                              nprobe=fresh.index.num_clusters, engine="csr")
         assert target not in set(np.asarray(ids)[0].tolist())
     finally:
         fresh.close()
@@ -370,7 +370,7 @@ def test_insert_batch_reroute_fallback_visible_in_search(tmp_path):
         fresh.insert_batch(add, np.arange(90_000, 90_024))
         assert fired
         ids, dists = fresh.search(add, 1, nprobe=fresh.index.num_clusters,
-                                  engine="xla")
+                                  engine="csr")
         got = set(np.asarray(ids)[:, 0].tolist())
         assert got == set(range(90_000, 90_024)), got
         assert np.allclose(np.asarray(dists)[:, 0], 0.0, atol=1e-5)

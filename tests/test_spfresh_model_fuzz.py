@@ -54,7 +54,7 @@ def _check(fresh, model, deleted, ctx):
     if probe:
         q = np.stack([v for _, v in probe])
         ids, d = fresh.search(q, 1, nprobe=fresh.index.num_clusters,
-                              engine="xla")
+                              engine="csr")
         for r, (vid, _) in enumerate(probe):
             assert int(ids[r, 0]) == vid, f"{ctx}: self-query missed"
             assert float(d[r, 0]) < 1e-4, ctx

@@ -4,10 +4,10 @@ Random mutation sequences (member appends, slab rewrites/shrinks, new
 postings, removed postings, centroid moves) drive THREE views of one
 mutating ``SpannIndex``:
 
-  * the Pallas padded view — updates IN PLACE (append scatter / slab
+  * the slab (padded) view — updates IN PLACE (append scatter / slab
     rewrite / free-row allocation),
   * the sharded padded view — same machinery under shard_map,
-  * the XLA CSR view — rebuilt from scratch every generation (the oracle).
+  * the CSR view — rebuilt from scratch every generation (the oracle).
 
 After every few mutations all three must return identical full-probe
 result sets.  Parametrized over float32 and int8 storage — the int8 paths
@@ -52,7 +52,7 @@ def test_view_update_fuzz(tmp_path, sd, seed):
         }
     )
     index = SpannIndexBuilder(cfg).with_data(data).build(save=False)
-    sharded = ShardedSpannIndex(index, default_mesh(), engine="pallas")
+    sharded = ShardedSpannIndex(index, default_mesh(), engine="slab")
     queries = np.concatenate([data[:6], 3.0 * rng.standard_normal((4, DIM))
                               ]).astype(np.float32)
     next_vid = 50_000
@@ -60,9 +60,9 @@ def test_view_update_fuzz(tmp_path, sd, seed):
     def check(ctx):
         k = 8
         npb = index.num_clusters
-        ora = index.search(queries, k, nprobe=npb, engine="xla")
-        pal = index.search(queries, k, nprobe=npb, engine="pallas")
-        _sets_equal(pal, ora, f"{ctx} pallas-vs-xla")
+        ora = index.search(queries, k, nprobe=npb, engine="csr")
+        pal = index.search(queries, k, nprobe=npb, engine="slab")
+        _sets_equal(pal, ora, f"{ctx} slab-vs-csr")
         sh = sharded.search(queries, k, nprobe=npb, nprobe_mode="global")
         _sets_equal(sh, ora, f"{ctx} sharded-vs-xla")
 
